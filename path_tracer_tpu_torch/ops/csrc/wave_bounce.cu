@@ -1,0 +1,761 @@
+// The bounce megakernel for Hopper (sm_90a): one path segment for every
+// lane of the work-queue driver.
+//
+// Replaces the reference package's TPU kernel
+// path_tracer_tpu/ops/pallas/wave_bounce.py:wave_bounce (the pallas_call
+// of _wave_kernel, which inlines ops/pallas/bounce_core.py:advance and
+// camera_ray_block).  Its plain PyTorch version, the executable spec, is
+// path_tracer_tpu_torch/ops/bounce_core.py:wave_step; every float op below
+// is the same op in the same order, so with -fmad=false (no contraction)
+// and IEEE divide/sqrt the two agree bit for bit, sin/cos/log included
+// (both evaluate those in double and round once).
+//
+// What bounds it on the H100.  Per launch it moves the lane state once
+// (~240 bytes a lane in and out, ~115 MB at 483,328 lanes: ~35 us at
+// 3.35 TB/s), but it executes ~25 float ops per (lane, sphere) pair in the
+// sphere fold: ~490 spheres x 483K lanes x 25 = ~6 GFLOP, ~0.1-0.2 ms at
+// the FP32 rate.  It is bound by operations, in the fold.  The design:
+//   * one thread per lane; the ray state stays in registers for the whole
+//     segment, each plane is read and written once, coalesced;
+//   * every thread of a warp reads the same table row in the fold, so the
+//     tables are read through the read-only path (__ldg): one broadcast
+//     load per row, no shared-memory staging needed at ~30 KB of spheres;
+//   * the fold carries only (best key, best index) and the winner's
+//     attributes come from one direct indexed load afterwards;
+//   * a lane that does not advance (dead or stalled) skips the segment,
+//     and a lane runs only its own material's scatter branch (the draw
+//     masks are mutually exclusive, so draw counts are unchanged);
+//   * the TPU layout workarounds (2-carry fold with lane-gather
+//     reconstruction, 16-way texture sweep, unrolled scans) are dropped;
+//     the win record, draw counts and per-segment snapshots are kept.
+// Outputs go to separate buffers the wrapper allocates; nothing is updated
+// in place.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+// float32 planes read and written, in wave_bounce.F_RW order
+enum { OX, OY, OZ, DX, DY, DZ, TM, TPX, TPY, TPZ, RADX, RADY, RADZ, ACCX,
+       ACCY, ACCZ, ALIVE, S, BNC, WRK, N_RW };
+// read-only float32 planes follow them in f_in (wave_bounce.F_RO)
+enum { PIX = N_RW, SEND, STRD, N_IN };
+enum { FK, FIDX, FWX, FWY, FWZ, N_FIX };
+
+}  // namespace
+
+// kernel arguments; mirrored by wave_bounce._Args (ctypes)
+struct WaveArgs {
+  const float* sph;        // (15, p_sph)
+  const int* sph_segs;     // (n_med + 1, 2)
+  const float* rect;       // (15, p_rect)
+  const int* rect_segs;    // (n_med + 1)
+  const float* tri;        // (17, p_tri)
+  const int* tri_segs;     // (n_med + 1)
+  const float* med;        // (17, n_med)
+  const float* spec;       // (11, 16)
+  const float* cam;        // (23)
+  const float* f_in[N_IN];
+  const long long* rng_in;
+  const float* fix_in[N_FIX];
+  const int* texel;
+  const float* srv;
+  float* f_out[N_RW];
+  long long* rng_out;
+  float* fix_out[N_FIX];
+  float* win;
+  float* t_hit;
+  int n_lanes, p_sph, p_rect, p_tri, n_med, max_depth, attenuate;
+  unsigned int seed;
+  float t_min;
+};
+
+namespace {
+
+constexpr float INF = __builtin_huge_valf();
+constexpr float BIG = 3.0e38f;
+// float32 roundings of the reference's double constants (no double
+// rounding through a decimal float literal)
+constexpr float PI_F = (float)3.1415926535897932385;
+constexpr float TWO_PI_F = (float)(2.0 * 3.1415926535897932385);
+constexpr float HALF_PI_F = (float)(3.1415926535897932385 / 2.0);
+constexpr float INV_2PI_F = (float)(1.0 / (2.0 * 3.1415926535897932385));
+constexpr float INV_PI_F = (float)(1.0 / 3.1415926535897932385);
+constexpr float INV255_F = (float)(1.0 / 255.0);
+constexpr float EPS4_F = (float)1e-4;
+constexpr float EPS7_F = (float)1e-7;
+constexpr unsigned int INITIAL_STATE = 2463534242u;
+
+__device__ __forceinline__ float ld(const float* p) { return __ldg(p); }
+
+// torch.minimum / torch.maximum: NaN in, NaN out
+__device__ __forceinline__ float tmin(float a, float b) {
+  return (a != a || b != b) ? a + b : fminf(a, b);
+}
+__device__ __forceinline__ float tmax(float a, float b) {
+  return (a != a || b != b) ? a + b : fmaxf(a, b);
+}
+
+__device__ __forceinline__ float fsin(float x) { return (float)sin((double)x); }
+__device__ __forceinline__ float fcos(float x) { return (float)cos((double)x); }
+__device__ __forceinline__ float flog(float x) { return (float)log((double)x); }
+
+// ---- RNG (xorshift.hpp:72-74), masked draws keep the reference's counts --
+__device__ __forceinline__ unsigned int xs32(unsigned int s) {
+  s ^= s >> 7;
+  s ^= s << 1;
+  s ^= s >> 9;
+  return s;
+}
+__device__ __forceinline__ float u01(unsigned int u) {
+  return __uint2float_rn(u) * 0x1p-32f;
+}
+__device__ __forceinline__ float draw(unsigned int& s, bool m) {
+  const unsigned int s2 = xs32(s);
+  if (m) s = s2;
+  return u01(s2);
+}
+__device__ __forceinline__ float draw_range(unsigned int& s, bool m, float lo,
+                                            float hi) {
+  const float f = draw(s, m);
+  return lo + (hi - lo) * f;
+}
+__device__ __forceinline__ unsigned int splitmix32(unsigned int x) {
+  x += 0x9E3779B9u;
+  x = (x ^ (x >> 16)) * 0x21F0AAADu;
+  x = (x ^ (x >> 15)) * 0x735A2D97u;
+  return x ^ (x >> 15);
+}
+
+// ---- degree-17 odd minimax atan on [-1, 1], as written in the reference -
+__device__ __forceinline__ float fast_atan(float t) {
+  const float t2 = t * t;
+  float p = (float)-9.2563e-4;
+  p = p * t2 + (float)5.9624e-3;
+  p = p * t2 + (float)-1.97338e-2;
+  p = p * t2 + (float)4.30889e-2;
+  p = p * t2 + (float)-7.5005e-2;
+  p = p * t2 + (float)0.10571;
+  p = p * t2 + (float)-0.14182;
+  p = p * t2 + (float)0.19993;
+  p = p * t2 + (float)-0.33332;
+  p = p * t2 + (float)0.999999;
+  return p * t;
+}
+__device__ __forceinline__ float fast_atan2(float y, float x) {
+  const float ax = fabsf(x), ay = fabsf(y);
+  const float hi = tmax(ax, ay), lo = tmin(ax, ay);
+  const float t = lo / (hi == 0.f ? 1.f : hi);
+  float a = fast_atan(t);
+  a = ay > ax ? HALF_PI_F - a : a;
+  a = x < 0.f ? PI_F - a : a;
+  return y < 0.f ? -a : a;
+}
+__device__ __forceinline__ float fast_asin(float y) {
+  return fast_atan2(y, sqrtf(tmax(1.f - y * y, 0.f)));
+}
+
+__device__ __forceinline__ float unpack_scan(float meta) {
+  return meta - floorf(meta * (1.f / 1024.f)) * 1024.f;
+}
+
+// a winner candidate of the cross-class merge (render.hpp:37-49)
+struct Win {
+  float t, scan, meta, par, ar, ag, ab, nx, ny, nz, u, v, tie, cls;
+};
+
+__device__ __forceinline__ void merge(Win& w, const Win& c) {
+  const bool tie = c.t == w.t;
+  const bool b_later = c.scan > w.scan;
+  const bool rule = (b_later && c.tie > 0.f) || (!b_later && w.tie <= 0.f);
+  if (c.t < w.t || (tie && rule)) w = c;
+}
+
+// what one segment produces before the policy (bounce_core.Adv)
+struct Adv {
+  unsigned int rng;
+  bool hit, miss, tk_image, did_scatter, stop_emit;
+  float px, py, pz, alb_x, alb_y, alb_z, atlas_idx, att_x, att_y, att_z;
+  float ndx, ndy, ndz, sky_x, sky_y, sky_z, wscan, wcls, t_hit;
+};
+
+// One path segment for an advancing lane (bounce_core.advance).
+template <int NMED>
+__device__ __forceinline__ void advance(const WaveArgs& A, float ox, float oy,
+                                        float oz, float dx, float dy,
+                                        float dz, float tm, unsigned int rng,
+                                        Adv& o) {
+  const float tmin_ = A.t_min;
+  const float a = dx * dx + dy * dy + dz * dz;
+  const float a_safe = a == 0.f ? 1.f : a;
+  const float inv_a = 1.f / a_safe;
+  const float tmin_a = tmin_ * a;
+  const int ps = A.p_sph;
+  const float* sph = A.sph;
+
+  // ---- sphere fold in key = t*|d|^2 space (sphere.hpp:59-106) -----------
+  float bk = INF;
+  int bidx = 0;
+  float sph_snap[NMED];
+  int start = 0;
+#pragma unroll
+  for (int m = 0; m <= NMED; ++m) {
+    const int static_end = __ldg(&A.sph_segs[2 * m]);
+    const int end = __ldg(&A.sph_segs[2 * m + 1]);
+    for (int j = start; j < static_end; ++j) {
+      const float cox = ld(&sph[0 * ps + j]) - ox;
+      const float coy = ld(&sph[1 * ps + j]) - oy;
+      const float coz = ld(&sph[2 * ps + j]) - oz;
+      const float nb = cox * dx + coy * dy + coz * dz;  // = -b
+      const float cc = cox * cox + coy * coy + coz * coz - ld(&sph[8 * ps + j]);
+      const float disc = nb * nb - a * cc;
+      if (disc > 0.f) {  // strict: a tangent misses
+        const float sq = sqrtf(disc);
+        const float k1 = nb - sq, k2 = nb + sq;
+        const float cand = k1 > tmin_a ? k1 : k2;
+        if (cand > tmin_a && cand < bk) {
+          bk = cand;
+          bidx = j;
+        }
+      }
+    }
+    for (int j = static_end; j < end; ++j) {
+      const float kmov = (tm - ld(&sph[6 * ps + j])) * ld(&sph[7 * ps + j]);
+      const float cox = (ld(&sph[0 * ps + j]) + kmov * ld(&sph[3 * ps + j])) - ox;
+      const float coy = (ld(&sph[1 * ps + j]) + kmov * ld(&sph[4 * ps + j])) - oy;
+      const float coz = (ld(&sph[2 * ps + j]) + kmov * ld(&sph[5 * ps + j])) - oz;
+      const float nb = cox * dx + coy * dy + coz * dz;
+      const float cc = cox * cox + coy * coy + coz * coz - ld(&sph[8 * ps + j]);
+      const float disc = nb * nb - a * cc;
+      if (disc > 0.f) {
+        const float sq = sqrtf(disc);
+        const float k1 = nb - sq, k2 = nb + sq;
+        const float cand = k1 > tmin_a ? k1 : k2;
+        if (cand > tmin_a && cand < bk) {
+          bk = cand;
+          bidx = j;
+        }
+      }
+    }
+    if (m < NMED) sph_snap[m] = bk;
+    start = end;
+  }
+  const float s_t = bk * inv_a;
+
+  // winner attributes: one direct indexed load (sphere 0 when no hit)
+  const float kmov_w = (tm - ld(&sph[6 * ps + bidx])) * ld(&sph[7 * ps + bidx]);
+  const float bcx = ld(&sph[0 * ps + bidx]) + kmov_w * ld(&sph[3 * ps + bidx]);
+  const float bcy = ld(&sph[1 * ps + bidx]) + kmov_w * ld(&sph[4 * ps + bidx]);
+  const float bcz = ld(&sph[2 * ps + bidx]) + kmov_w * ld(&sph[5 * ps + bidx]);
+  const float brinv = ld(&sph[9 * ps + bidx]);
+  const float bmeta = ld(&sph[10 * ps + bidx]);
+
+  // ---- rect fold (t space, reject form; rectangle.hpp:16-130) -----------
+  const float inv_dx = 1.f / dx, inv_dy = 1.f / dy, inv_dz = 1.f / dz;
+  const int pr = A.p_rect;
+  const float* R = A.rect;
+  float rt = INF, ru = 0.f, rv = 0.f, rmeta = 0.f, rpar = 0.f, rar = 0.f,
+        rag = 0.f, rab = 0.f, rxy = 0.f, rxz = 0.f;
+  float rect_snap[NMED];
+  start = 0;
+#pragma unroll
+  for (int m = 0; m <= NMED; ++m) {
+    const int end = __ldg(&A.rect_segs[m]);
+    for (int j = start; j < end; ++j) {
+      const float isxy = ld(&R[0 * pr + j]), isxz = ld(&R[1 * pr + j]);
+      const float isyz = ld(&R[2 * pr + j]), kk = ld(&R[3 * pr + j]);
+      const float a0 = ld(&R[4 * pr + j]), a1 = ld(&R[5 * pr + j]);
+      const float b0 = ld(&R[6 * pr + j]), b1 = ld(&R[7 * pr + j]);
+      const float o_k = isyz * ox + isxz * oy + isxy * oz;
+      const float d_k = isyz * dx + isxz * dy + isxy * dz;
+      const float t = (kk - o_k) / d_k;  // a true divide; 0/0 rejects below
+      const float ca = isxy + isxz;
+      const float o_a = ca * ox + isyz * oy;
+      const float d_a = ca * dx + isyz * dy;
+      const float cb = isxz + isyz;
+      const float o_b = isxy * oy + cb * oz;
+      const float d_b = isxy * dy + cb * dz;
+      const float av = o_a + t * d_a;
+      const float bv = o_b + t * d_b;
+      const bool in_b = !((av < a0) || (av > a1) || (bv < b0) || (bv > b1));
+      if (!(t < tmin_) && !(t > rt) && in_b && fabsf(t) < BIG) {
+        rt = t;
+        ru = (av - a0) * ld(&R[8 * pr + j]);
+        rv = (bv - b0) * ld(&R[9 * pr + j]);
+        rmeta = ld(&R[10 * pr + j]);
+        rpar = ld(&R[11 * pr + j]);
+        rar = ld(&R[12 * pr + j]);
+        rag = ld(&R[13 * pr + j]);
+        rab = ld(&R[14 * pr + j]);
+        rxy = isxy;
+        rxz = isxz;
+      }
+    }
+    if (m < NMED) rect_snap[m] = rt;
+    start = end;
+  }
+
+  // ---- triangle fold (Moller-Trumbore, triangle.hpp:58-100) -------------
+  const int pt = A.p_tri;
+  const float* Tb = A.tri;
+  float tt = INF, tmeta = 0.f, tpar = 0.f, tnx = 0.f, tny = 0.f, tnz = 0.f,
+        tar = 0.f, tag = 0.f, tab = 0.f;
+  float tri_snap[NMED];
+  start = 0;
+#pragma unroll
+  for (int m = 0; m <= NMED; ++m) {
+    const int end = __ldg(&A.tri_segs[m]);
+    for (int j = start; j < end; ++j) {
+      const float v0x = ld(&Tb[0 * pt + j]), v0y = ld(&Tb[1 * pt + j]),
+                  v0z = ld(&Tb[2 * pt + j]);
+      const float e1x = ld(&Tb[3 * pt + j]), e1y = ld(&Tb[4 * pt + j]),
+                  e1z = ld(&Tb[5 * pt + j]);
+      const float e2x = ld(&Tb[6 * pt + j]), e2y = ld(&Tb[7 * pt + j]),
+                  e2z = ld(&Tb[8 * pt + j]);
+      const float hx = dy * e2z - dz * e2y;
+      const float hy = dz * e2x - dx * e2z;
+      const float hz = dx * e2y - dy * e2x;
+      const float aa = e1x * hx + e1y * hy + e1z * hz;
+      const float a_abs = fabsf(aa);
+      const bool a_pos = aa > 0.f;
+      const float sx = ox - v0x, sy = oy - v0y, sz = oz - v0z;
+      const float u = sx * hx + sy * hy + sz * hz;
+      const bool u_ok = !((u > 0.f) ^ a_pos) && (fabsf(u) <= a_abs);
+      const float qx = sy * e1z - sz * e1y;
+      const float qy = sz * e1x - sx * e1z;
+      const float qz = sx * e1y - sy * e1x;
+      const float v = dx * qx + dy * qy + dz * qz;
+      const bool v_ok = !((v > 0.f) ^ a_pos) && (fabsf(u + v) <= a_abs);
+      const float t = (e2x * qx + e2y * qy + e2z * qz) / aa;
+      if ((a_abs >= EPS7_F) && u_ok && v_ok && !(t < tmin_) && !(t > tt)) {
+        tt = t;
+        tmeta = ld(&Tb[12 * pt + j]);
+        tpar = ld(&Tb[13 * pt + j]);
+        tnx = ld(&Tb[9 * pt + j]);
+        tny = ld(&Tb[10 * pt + j]);
+        tnz = ld(&Tb[11 * pt + j]);
+        tar = ld(&Tb[14 * pt + j]);
+        tag = ld(&Tb[15 * pt + j]);
+        tab = ld(&Tb[16 * pt + j]);
+      }
+    }
+    if (m < NMED) tri_snap[m] = tt;
+    start = end;
+  }
+
+  // ---- cross-class merge -------------------------------------------------
+  const float psx = ox + s_t * dx, psy = oy + s_t * dy, psz = oz + s_t * dz;
+  Win w{s_t, unpack_scan(bmeta), bmeta, ld(&sph[11 * ps + bidx]),
+        ld(&sph[12 * ps + bidx]), ld(&sph[13 * ps + bidx]),
+        ld(&sph[14 * ps + bidx]), (psx - bcx) * brinv, (psy - bcy) * brinv,
+        (psz - bcz) * brinv, 0.f, 0.f, 0.f, 0.f};
+  merge(w, Win{rt, unpack_scan(rmeta), rmeta, rpar, rar, rag, rab,
+               1.f - rxy - rxz, rxz, rxy, ru, rv, 1.f, 1.f});
+  // triangle normal = cross(e1, e2), u = v = 0 (triangle.hpp:94-99)
+  merge(w, Win{tt, unpack_scan(tmeta), tmeta, tpar, tar, tag, tab, tnx, tny,
+               tnz, 0.f, 0.f, 1.f, 2.f});
+
+  // ---- media (constant_medium.hpp:28-77) ---------------------------------
+  float earlier = INF;
+  const float ray_len = sqrtf(a);
+  const float inv_len = ray_len * inv_a;
+#pragma unroll
+  for (int m = 0; m < NMED; ++m) {
+    const float* M = A.med + m;
+#define MD(r) ld(&M[(r) * NMED])
+    const float mcx = MD(1), mcy = MD(2), mcz = MD(3), mr = MD(4);
+    const float ocx = ox - mcx, ocy = oy - mcy, ocz = oz - mcz;
+    const float b = ocx * dx + ocy * dy + ocz * dz;
+    const float cc = ocx * ocx + ocy * ocy + ocz * ocz - mr * mr;
+    const float disc = b * b - a * cc;
+    const bool has = disc > 0.f;
+    const float sq = sqrtf(has ? disc : 0.f);
+    const float st1 = (-b - sq) * inv_a;
+    const float st2 = (-b + sq) * inv_a;
+    const bool hit2_s = has && (st2 > st1 + EPS4_F);
+    const float pmnx = MD(5), pmny = MD(6), pmnz = MD(7);
+    const float pmxx = MD(8), pmxy = MD(9), pmxz = MD(10);
+    float ts[6];
+    {
+      const float kk[6] = {pmxz, pmnz, pmxy, pmny, pmxx, pmnx};
+#pragma unroll
+      for (int k = 0; k < 6; ++k) {
+        // sides: xy@zmax, xy@zmin, xz@ymax, xz@ymin, yz@xmax, yz@xmin
+        const int ax = 2 - k / 2;  // plane axis: z, z, y, y, x, x
+        const float o_k = ax == 2 ? oz : (ax == 1 ? oy : ox);
+        const float id_k = ax == 2 ? inv_dz : (ax == 1 ? inv_dy : inv_dx);
+        const float o_a = ax == 0 ? oy : ox, d_a = ax == 0 ? dy : dx;
+        const float a0 = ax == 0 ? pmny : pmnx, a1 = ax == 0 ? pmxy : pmxx;
+        const float o_b = ax == 2 ? oy : oz, d_b = ax == 2 ? dy : dz;
+        const float b0 = ax == 2 ? pmny : pmnz, b1 = ax == 2 ? pmxy : pmxz;
+        const float t = (kk[k] - o_k) * id_k;
+        const float av = o_a + t * d_a;
+        const float bv = o_b + t * d_b;
+        const bool okb = !((av < a0) || (av > a1) || (bv < b0) || (bv > b1))
+                         && (fabsf(t) < BIG);
+        ts[k] = okb ? t : INF;
+      }
+    }
+    float entry = ts[0];
+#pragma unroll
+    for (int k = 1; k < 6; ++k) entry = tmin(entry, ts[k]);
+    float exit_t = INF;
+#pragma unroll
+    for (int k = 0; k < 6; ++k)
+      exit_t = tmin(exit_t, ts[k] < entry + EPS4_F ? INF : ts[k]);
+    const bool hit2_b = (entry < BIG) && (exit_t < BIG);
+
+    const bool is_box = MD(0) == 1.f;
+    const bool hit2 = (is_box ? hit2_b : hit2_s) && (MD(12) > 0.f);
+    const float t_in = is_box ? entry : st1;
+    const float t_out = is_box ? exit_t : st2;
+    float pre = tmin(sph_snap[m] * inv_a, rect_snap[m]);
+    pre = tmin(pre, tri_snap[m]);
+    pre = tmin(pre, earlier);
+    const float t1c = tmax(tmax(t_in, tmin_), 0.f);
+    const float t2c = tmin(t_out, pre);
+    const bool draw_mask = hit2 && !(t1c >= t2c);
+    float uni = draw(rng, draw_mask);
+    uni = draw_mask ? uni : 0.5f;
+    const float dist_inside = (t2c - t1c) * ray_len;
+    const float hit_distance = MD(11) * flog(uni);
+    const bool accept = draw_mask && !(hit_distance > dist_inside);
+    const float t_e = t1c + hit_distance * inv_len;
+    const float mmeta = MD(13);
+    merge(w, Win{accept ? t_e : INF, unpack_scan(mmeta), mmeta, 0.f, MD(14),
+                 MD(15), MD(16), 1.f, 0.f, 0.f, 0.f, 0.f, 1.f, 3.f});
+    earlier = accept ? tmin(earlier, t_e) : earlier;
+#undef MD
+  }
+
+  // ---- hit record (hitable.hpp:8-24) -------------------------------------
+  const bool hit = w.t < BIG;
+  const float t_hit = hit ? w.t : 0.f;
+  const float px = ox + t_hit * dx, py = oy + t_hit * dy, pz = oz + t_hit * dz;
+  const bool front = (w.cls == 3.f) || ((dx * w.nx + dy * w.ny + dz * w.nz) < 0.f);
+  const float nx = front ? w.nx : -w.nx;
+  const float ny = front ? w.ny : -w.ny;
+  const float nz = front ? w.nz : -w.nz;
+  // sphere uv: mercator of the flipped normal (sphere.hpp:13-24)
+  const float phi = fast_atan2(nz, (nx == 0.f && nz == 0.f) ? 1.f : nx);
+  const float theta = fast_asin(tmin(tmax(ny, -1.f), 1.f));
+  const float u_merc = 1.f - (phi + PI_F) * INV_2PI_F;
+  const float v_merc = (theta + HALF_PI_F) * INV_PI_F;
+  const float uu = w.cls == 0.f ? u_merc : w.u;
+  const float vv = w.cls == 0.f ? v_merc : w.v;
+
+  const float mtype = floorf(w.meta * (1.f / 65536.f));
+  const float rem = w.meta - mtype * 65536.f;
+  const float texkind = floorf(rem * (1.f / 16384.f));
+  const float rem2 = rem - texkind * 16384.f;
+  const int texref = (int)floorf(rem2 * (1.f / 1024.f));
+
+  // ---- textures (texture.hpp): checker here, image -> atlas index --------
+  const float* sp = A.spec + texref;
+#define SP(r) ld(&sp[(r) * 16])
+  const bool tk_checker = texkind == 1.f;
+  const bool tk_image = texkind == 2.f;
+  float alb_x = w.ar, alb_y = w.ag, alb_z = w.ab;
+  if (tk_checker) {
+    const bool odd = (fsin(10.f * px) * fsin(10.f * py) * fsin(10.f * pz)) < 0.f;
+    alb_x = odd ? SP(1) : SP(4);
+    alb_y = odd ? SP(2) : SP(5);
+    alb_z = odd ? SP(3) : SP(6);
+  }
+  const float twf = SP(7), thf = SP(8), toff = SP(9), tfreq = SP(10);
+#undef SP
+  const float fu = fmodf(uu * tfreq, 1.f);
+  const float fv = fmodf(vv * tfreq, 1.f);
+  const float wm1 = tmax(twf - 1.f, 0.f);
+  const float hm1 = tmax(thf - 1.f, 0.f);
+  const float ti = tmin(tmax(floorf(fu * wm1), 0.f), wm1);
+  const float tj = tmin(tmax(floorf((1.f - fv) * hm1), 0.f), hm1);
+  o.atlas_idx = toff + tj * twf + ti;
+  if (tk_image) alb_x = alb_y = alb_z = 1.f;
+
+  // ---- scatter (material.hpp:11-131) -------------------------------------
+  const float inv_len_d = 1.f / sqrtf(a_safe);
+  const float udx = dx * inv_len_d, udy = dy * inv_len_d, udz = dz * inv_len_d;
+  const bool is_lam = hit && mtype == 0.f;
+  const bool is_metal = hit && mtype == 1.f;
+  const bool is_diel = hit && mtype == 2.f;
+  const bool is_light = hit && mtype == 3.f;
+  const bool is_iso = hit && mtype == 4.f;
+  const float ud_dot_n = udx * nx + udy * ny + udz * nz;
+  float ndx = 0.f, ndy = 0.f, ndz = 0.f;
+  bool metal_alive = false;
+  if (is_lam) {  // n + unit_vec (3 draws, rtweekend.hpp:60-67)
+    const float xl = draw_range(rng, true, -1.f, 1.f);
+    const float maxy = sqrtf(tmax(1.f - xl * xl, 0.f));
+    const float fy = draw(rng, true);
+    const float yl = -maxy + 2.f * maxy * fy;
+    const float absz = sqrtf(tmax(maxy * maxy - yl * yl, 0.f));
+    const float fz = draw(rng, true);
+    ndx = nx + xl;
+    ndy = ny + yl;
+    ndz = nz + (fz > 0.5f ? absz : -absz);
+  } else if (is_metal || is_diel) {
+    const float rfl_x = udx - 2.f * ud_dot_n * nx;
+    const float rfl_y = udy - 2.f * ud_dot_n * ny;
+    const float rfl_z = udz - 2.f * ud_dot_n * nz;
+    if (is_metal) {  // reflect + fuzz * ball (3 draws, rtweekend.hpp:70-80)
+      const float br = draw(rng, true);
+      const float bth = draw_range(rng, true, 0.f, TWO_PI_F);
+      const float bph = draw_range(rng, true, 0.f, PI_F);
+      const float plan = br * fsin(bph);
+      ndx = rfl_x + w.par * (plan * fcos(bth));
+      ndy = rfl_y + w.par * (plan * fsin(bth));
+      ndz = rfl_z + w.par * (br * fcos(bph));
+      metal_alive = (ndx * nx + ndy * ny + ndz * nz) > 0.f;
+    } else {  // dielectric (material.hpp:68-89)
+      const float ior = w.par;
+      const float ratio = front ? 1.f / ior : ior;
+      const float cos_t = tmin(-ud_dot_n, 1.f);
+      const float sin_t = sqrtf(tmax(1.f - cos_t * cos_t, 0.f));
+      const bool cannot = ratio * sin_t > 1.f;
+      float r0 = (1.f - ratio) / (1.f + ratio);
+      r0 = r0 * r0;
+      const float omc = 1.f - cos_t;
+      const float omc2 = omc * omc;
+      const float reflectance = r0 + (1.f - r0) * (omc2 * omc2 * omc);
+      const bool diel_draw = !cannot;
+      const float unid = draw(rng, diel_draw);
+      if (cannot || (diel_draw && (reflectance > unid))) {
+        ndx = rfl_x;
+        ndy = rfl_y;
+        ndz = rfl_z;
+      } else {
+        const float rp_x = (udx + cos_t * nx) * ratio;
+        const float rp_y = (udy + cos_t * ny) * ratio;
+        const float rp_z = (udz + cos_t * nz) * ratio;
+        const float rpar_ =
+            -sqrtf(fabsf(1.f - (rp_x * rp_x + rp_y * rp_y + rp_z * rp_z)));
+        ndx = rp_x + rpar_ * nx;
+        ndy = rp_y + rpar_ * ny;
+        ndz = rp_z + rpar_ * nz;
+      }
+    }
+  } else if (is_iso) {  // ball (3 draws, material.hpp:122)
+    const float ir = draw(rng, true);
+    const float ith = draw_range(rng, true, 0.f, TWO_PI_F);
+    const float iph = draw_range(rng, true, 0.f, PI_F);
+    const float iplan = ir * fsin(iph);
+    ndx = iplan * fcos(ith);
+    ndy = iplan * fsin(ith);
+    ndz = ir * fcos(iph);
+  }
+  const bool did_scatter = hit && !is_light && (!is_metal || metal_alive);
+
+  // ---- sky (render.hpp:83-87) --------------------------------------------
+  const float sky_tv = 0.5f * (udy + 1.f);
+  o.rng = rng;
+  o.hit = hit;
+  o.miss = !hit;
+  o.px = px;
+  o.py = py;
+  o.pz = pz;
+  o.alb_x = alb_x;
+  o.alb_y = alb_y;
+  o.alb_z = alb_z;
+  o.tk_image = tk_image;
+  o.att_x = is_light ? 1.f : alb_x;
+  o.att_y = is_light ? 1.f : alb_y;
+  o.att_z = is_light ? 1.f : alb_z;
+  o.did_scatter = did_scatter;
+  o.ndx = ndx;
+  o.ndy = ndy;
+  o.ndz = ndz;
+  o.stop_emit = is_light && !did_scatter;
+  o.sky_x = 1.f - sky_tv + sky_tv * 0.5f;
+  o.sky_y = 1.f - sky_tv + sky_tv * (float)0.7;
+  o.sky_z = 1.f - sky_tv + sky_tv * 1.f;
+  o.wscan = w.scan;
+  o.wcls = w.cls;
+  o.t_hit = t_hit;
+}
+
+// One bounce for every lane: fixup, stall, segment, termination, depth
+// exhaustion, next fixup, win record, in-chunk regeneration, work count
+// (bounce_core.wave_step).
+constexpr int BLOCK = 128;  // threads a block, one lane each
+
+template <int NMED>
+__global__ void __launch_bounds__(BLOCK) wave_kernel(const WaveArgs A) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= A.n_lanes) return;
+#define IN(p) A.f_in[p][i]
+  const float ox = IN(OX), oy = IN(OY), oz = IN(OZ);
+  const float dx = IN(DX), dy = IN(DY), dz = IN(DZ), tm = IN(TM);
+  const unsigned int rng = (unsigned int)A.rng_in[i];
+  float tpx = IN(TPX), tpy = IN(TPY), tpz = IN(TPZ);
+  const bool alive_b = IN(ALIVE) > 0.f;
+
+  // ---- apply the deferred fixup (texture.hpp:144-150, scale 1/255) -------
+  const int tex = A.texel[i];
+  const float txr = (float)(tex & 0xFF) * INV255_F;
+  const float txg = (float)((tex >> 8) & 0xFF) * INV255_F;
+  const float txb = (float)((tex >> 16) & 0xFF) * INV255_F;
+  const float fk_in = A.fix_in[FK][i];
+  const bool pend = fk_in != 0.f;
+  const bool srvb = pend && (A.srv[i] > 0.f);
+  const bool stall = pend && !srvb;
+  const bool is_alb_fix = srvb && fk_in == 1.f;
+  const bool is_emit_fix = srvb && fk_in == 2.f;
+  const float fwx_in = A.fix_in[FWX][i], fwy_in = A.fix_in[FWY][i],
+              fwz_in = A.fix_in[FWZ][i];
+  if (is_alb_fix) {
+    tpx = tpx * txr;
+    tpy = tpy * txg;
+    tpz = tpz * txb;
+  }
+  const float acc_x0 = IN(ACCX) + (is_emit_fix ? fwx_in * txr : 0.f);
+  const float acc_y0 = IN(ACCY) + (is_emit_fix ? fwy_in * txg : 0.f);
+  const float acc_z0 = IN(ACCZ) + (is_emit_fix ? fwz_in * txb : 0.f);
+
+  // ---- one segment; dead and stalled lanes skip it -----------------------
+  const bool alive_adv = alive_b && !stall;
+  Adv adv = {};  // a lane that does not advance: no hit, atlas index 0
+  adv.rng = rng;
+  if (alive_adv) advance<NMED>(A, ox, oy, oz, dx, dy, dz, tm, rng, adv);
+
+  // ---- termination and sky (render.hpp:58-91) ----------------------------
+  float rxv = IN(RADX) + (adv.miss ? tpx * adv.sky_x : 0.f);
+  float ryv = IN(RADY) + (adv.miss ? tpy * adv.sky_y : 0.f);
+  float rzv = IN(RADZ) + (adv.miss ? tpz * adv.sky_z : 0.f);
+  // emission on scatter-fail is unattenuated in the reference (render.hpp:73)
+  const float ew_x = A.attenuate ? tpx : 1.f;
+  const float ew_y = A.attenuate ? tpy : 1.f;
+  const float ew_z = A.attenuate ? tpz : 1.f;
+  const bool emit_inline = adv.stop_emit && !adv.tk_image;
+  rxv = rxv + (emit_inline ? ew_x * adv.alb_x : 0.f);
+  ryv = ryv + (emit_inline ? ew_y * adv.alb_y : 0.f);
+  rzv = rzv + (emit_inline ? ew_z * adv.alb_z : 0.f);
+
+  const bool cont = adv.did_scatter;
+  const float tpx_n = cont ? tpx * adv.att_x : tpx;
+  const float tpy_n = cont ? tpy * adv.att_y : tpy;
+  const float tpz_n = cont ? tpz * adv.att_z : tpz;
+
+  // ---- depth exhaustion --------------------------------------------------
+  const float bnc = IN(BNC);
+  const float bnc_n = alive_adv ? bnc + 1.f : bnc;
+  const bool exhausted = cont && (bnc_n >= (float)A.max_depth);
+  const bool alive_n = cont && !exhausted;
+  const bool finished = alive_adv && !alive_n;
+  const float acx_n = acc_x0 + (finished ? rxv : 0.f);
+  const float acy_n = acc_y0 + (finished ? ryv : 0.f);
+  const float acz_n = acc_z0 + (finished ? rzv : 0.f);
+
+  // ---- next fixup (ALBEDO only for a path that goes on, render.hpp:91) ---
+  const float fk = (alive_n && adv.tk_image) ? 1.f
+                   : ((adv.stop_emit && adv.tk_image) ? 2.f : 0.f);
+  A.fix_out[FK][i] = stall ? fk_in : fk;
+  A.fix_out[FIDX][i] = stall ? A.fix_in[FIDX][i] : adv.atlas_idx;
+  A.fix_out[FWX][i] = stall ? fwx_in : ew_x;
+  A.fix_out[FWY][i] = stall ? fwy_in : ew_y;
+  A.fix_out[FWZ][i] = stall ? fwz_in : ew_z;
+
+  // ---- win record ((term*4 + cls)*1024 + scan) + 1; 0 = did not advance --
+  const float term = adv.miss ? 1.f
+                     : adv.stop_emit ? 2.f
+                     : (adv.hit && !(adv.did_scatter || adv.stop_emit)) ? 3.f
+                     : exhausted ? 4.f : 0.f;
+  A.win[i] = alive_adv ? (term * 4.f + adv.wcls) * 1024.f + adv.wscan + 1.f
+                       : 0.f;
+  A.t_hit[i] = adv.t_hit;
+
+  // ---- in-chunk regeneration (next sample of this pixel) -----------------
+  const float sv = IN(S);
+  const float s_next = sv + IN(STRD);
+  const bool regen = (finished || !alive_b) && (s_next < IN(SEND)) && !stall;
+  const float s_n = regen ? s_next : sv;
+  float nox = cont ? adv.px : ox, noy = cont ? adv.py : oy,
+        noz = cont ? adv.pz : oz;
+  float ndx = cont ? adv.ndx : dx, ndy = cont ? adv.ndy : dy,
+        ndz = cont ? adv.ndz : dz;
+  float ntm = tm;
+  unsigned int rng_n = adv.rng;
+  if (regen) {  // camera.hpp:93-100 + render.hpp:96-97, as camera_rays
+    const float* C = A.cam;
+    const float pix = IN(PIX);
+    const unsigned int pix_u = (unsigned int)(long long)pix;
+    const unsigned int s_u = (unsigned int)(long long)tmax(s_n, 0.f);
+    unsigned int st0 = splitmix32(pix_u ^ splitmix32(s_u ^ A.seed));
+    rng_n = st0 == 0u ? INITIAL_STATE : st0;
+    const float W = ld(&C[21]), H = ld(&C[22]);
+    const float pyf = floorf((pix + 0.5f) * (1.f / W));
+    const float pxf = pix - pyf * W;
+    const float ju = draw(rng_n, true);
+    const float jv = draw(rng_n, true);
+    const float su = (pxf + ju) / W;
+    const float sv_ = (pyf + jv) / H;
+    const float dkx = draw_range(rng_n, true, -1.f, 1.f);
+    const float dmaxy = sqrtf(1.f - dkx * dkx);
+    const float df = draw(rng_n, true);
+    const float dky = -dmaxy + (dmaxy - (-dmaxy)) * df;
+    const float rdx = dkx * ld(&C[18]);
+    const float rdy = dky * ld(&C[18]);
+    const float offx = ld(&C[12]) * rdx + ld(&C[15]) * rdy;
+    const float offy = ld(&C[13]) * rdx + ld(&C[16]) * rdy;
+    const float offz = ld(&C[14]) * rdx + ld(&C[17]) * rdy;
+    nox = ld(&C[0]) + offx;
+    noy = ld(&C[1]) + offy;
+    noz = ld(&C[2]) + offz;
+    ndx = ld(&C[3]) + ld(&C[6]) * su + ld(&C[9]) * sv_ - ld(&C[0]) - offx;
+    ndy = ld(&C[4]) + ld(&C[7]) * su + ld(&C[10]) * sv_ - ld(&C[1]) - offy;
+    ndz = ld(&C[5]) + ld(&C[8]) * su + ld(&C[11]) * sv_ - ld(&C[2]) - offz;
+    ntm = draw_range(rng_n, true, ld(&C[19]), ld(&C[20]));
+  }
+#define OUT(p) A.f_out[p][i]
+  OUT(OX) = nox;
+  OUT(OY) = noy;
+  OUT(OZ) = noz;
+  OUT(DX) = ndx;
+  OUT(DY) = ndy;
+  OUT(DZ) = ndz;
+  OUT(TM) = ntm;
+  A.rng_out[i] = (long long)rng_n;
+  OUT(TPX) = regen ? 1.f : tpx_n;
+  OUT(TPY) = regen ? 1.f : tpy_n;
+  OUT(TPZ) = regen ? 1.f : tpz_n;
+  OUT(RADX) = (regen || finished) ? 0.f : rxv;
+  OUT(RADY) = (regen || finished) ? 0.f : ryv;
+  OUT(RADZ) = (regen || finished) ? 0.f : rzv;
+  OUT(ACCX) = acx_n;
+  OUT(ACCY) = acy_n;
+  OUT(ACCZ) = acz_n;
+  OUT(ALIVE) = (alive_n || regen || (stall && alive_b)) ? 1.f : 0.f;
+  OUT(S) = s_n;
+  OUT(BNC) = regen ? 0.f : bnc_n;
+  OUT(WRK) = IN(WRK) + (alive_adv ? 1.f : 0.f);
+#undef OUT
+#undef IN
+}
+
+template <int NMED>
+cudaError_t launch(const WaveArgs& a, cudaStream_t stream) {
+  const int grid = (a.n_lanes + BLOCK - 1) / BLOCK;
+  wave_kernel<NMED><<<grid, BLOCK, 0, stream>>>(a);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// Launch one bounce on `stream`; returns cudaGetLastError() after the
+// launch (0 = launched).  Media counts 1..4 are instantiated.
+extern "C" int wave_bounce_launch(const WaveArgs* a, void* stream) {
+  if (a->n_lanes <= 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (a->n_med) {
+    case 1: return (int)launch<1>(*a, s);
+    case 2: return (int)launch<2>(*a, s);
+    case 3: return (int)launch<3>(*a, s);
+    case 4: return (int)launch<4>(*a, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+extern "C" const char* wave_bounce_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}

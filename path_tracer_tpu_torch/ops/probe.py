@@ -1,0 +1,132 @@
+"""Probe states for holding one `wave_bounce` call against another.
+
+`probe_state` makes a final-scene lane state a few bounces in, from a
+numpy seed, with every case the kernel's policy branches on: live and
+dead lanes, lanes that regenerate within their chunk, pending ALBEDO and
+EMIT image-texture fixups, and lanes whose pending fixup the texel service
+does not cover (they stall).  `agreement` compares two bounce outputs
+plane by plane.  The tests use both against the reference package on the
+CPU; `chip_smoke.py` uses them for the kernel against its plain version
+on the card.
+"""
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import numpy as np
+import torch
+
+from ..core.camera import Camera
+from ..core.rng import MASK32, seed_perf
+from ..engine.integrator import camera_rays
+from . import wave_bounce as WB
+
+INT_PLANES = ("rng", "win", "alive", "s", "bnc", "wrk", "fix_kind")
+FLOAT_PLANES = ("ox", "oy", "oz", "dx", "dy", "dz", "tm", "tpx", "tpy", "tpz",
+                "radx", "rady", "radz", "accx", "accy", "accz", "t_hit")
+FIX_PLANES = ("fix_idx", "fwx", "fwy", "fwz")
+
+
+def probe_state(tables: WB.SceneTables, cam: Camera, width: int,
+                height: int, atlas_flat: torch.Tensor, *, rows: int,
+                bounces: int = 3, max_depth: int = 50, seed: int = 0,
+                t_min: float = 1e-3, tile_rows: int = 8
+                ) -> Tuple[WB.WaveState, WB.FixState, torch.Tensor,
+                           torch.Tensor]:
+    """(state, fix, texel, srv) for one bounce call on `rows` x 128 lanes
+    of random pixels, after `bounces` calls of `wave_bounce` on the
+    tables' device."""
+    dev = tables.sph.device
+    rs = np.random.RandomState(seed)
+    n = rows * WB.LANE
+    sh = (rows, WB.LANE)
+    f32 = torch.float32
+    t = lambda a, dt=f32: torch.as_tensor(a, dtype=dt).reshape(sh).to(dev)
+    n_atlas = atlas_flat.shape[0]
+
+    pix = rs.randint(0, width * height, n)
+    send = rs.randint(1, 4, n)               # 1..3 samples in the chunk
+    rng0 = seed_perf(torch.as_tensor(pix), torch.zeros(n, dtype=torch.long),
+                     tables.seed)
+    rng1, o, d, tm = camera_rays(cam, width, height, torch.as_tensor(pix),
+                                 rng0)
+    one, zero = t(np.ones(n)), t(np.zeros(n))
+    st = WB.WaveState(
+        ox=t(o.x), oy=t(o.y), oz=t(o.z), dx=t(d.x), dy=t(d.y), dz=t(d.z),
+        tm=t(tm), rng=t(rng1, torch.int64), tpx=one, tpy=one, tpz=one,
+        radx=zero, rady=zero, radz=zero, accx=zero, accy=zero, accz=zero,
+        alive=one, s=zero, bnc=zero, wrk=zero, pix=t(pix), send=t(send),
+        strd=one)
+    fix = WB.zero_fix(rows, dev)
+
+    def service(fx):
+        texel = atlas_flat[torch.clamp(fx.idx.long(), 0, n_atlas - 1)]
+        return texel, t(rs.rand(n) < 0.6)       # ~40% of fixups stall
+
+    for _ in range(bounces):
+        texel, srv = service(fix)
+        out = WB.wave_bounce(tables, st, fix, texel, srv, t_min=t_min,
+                             max_depth=max_depth, attenuate=False,
+                             tile_rows=tile_rows)
+        st, fix = out.state, out.fix
+
+    # inject what the final scene rarely or never makes on its own: pending
+    # EMIT fixups (an emitter with an image texture) on dead lanes, pending
+    # ALBEDO fixups on live ones, and dead lanes with no sample left
+    lanes = rs.permutation(n)
+    k = max(n // 32, 1)
+    emit, alb, dead = (torch.as_tensor(np.isin(np.arange(n), lanes[i * k:
+                                                          (i + 1) * k]))
+                       .reshape(sh).to(dev) for i in range(3))
+    w = torch.where
+    atlas_idx = t(rs.randint(0, n_atlas, n))
+    fix = WB.FixState(
+        kind=w(emit, WB.FIX_EMIT, w(alb, WB.FIX_ALBEDO, fix.kind)),
+        idx=w(emit | alb, atlas_idx, fix.idx),
+        fwx=w(emit, t(rs.rand(n)), fix.fwx), fwy=w(emit, t(rs.rand(n)),
+                                                     fix.fwy),
+        fwz=w(emit, t(rs.rand(n)), fix.fwz))
+    st = st._replace(alive=w(emit | dead, 0.0, w(alb, 1.0, st.alive)),
+                     send=w(dead, st.s, st.send))
+    texel, srv = service(fix)
+    return st, fix, texel, srv
+
+
+def planes(out: WB.WaveOut) -> Dict[str, torch.Tensor]:
+    p = dict(out.state._asdict())
+    p.update(fix_kind=out.fix.kind, fix_idx=out.fix.idx, fwx=out.fix.fwx,
+             fwy=out.fix.fwy, fwz=out.fix.fwz, win=out.win, t_hit=out.t_hit)
+    return {k: v.detach().cpu() for k, v in p.items()}
+
+
+def _ulps(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Distance in float32 steps (across zero too); NaN vs NaN is 0."""
+    def key(x):
+        i = x.contiguous().view(torch.int32).long()
+        return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
+    d = (key(a) - key(b)).abs()
+    return torch.where(torch.isnan(a) & torch.isnan(b), 0, d)
+
+
+def agreement(a: WB.WaveOut, b: WB.WaveOut) -> Dict[str, float]:
+    """Per-plane agreement of two bounce outputs: for each integer plane
+    the fraction of lanes equal; for each float plane the fraction of the
+    lanes whose win agrees that are within 4 ulp, and the largest ulp
+    distance there (`*_max_ulp`).  Fixup planes are compared where a fixup
+    is pending in both (elsewhere they are never read)."""
+    pa, pb = planes(a), planes(b)
+    res = {}
+    for k in INT_PLANES:
+        x, y = pa[k], pb[k]
+        if k == "rng":
+            x, y = x & MASK32, y & MASK32
+        res[k] = float((x == y).double().mean())
+    same_win = pa["win"] == pb["win"]
+    fix_live = same_win & (pa["fix_kind"] != 0) & (pb["fix_kind"] != 0)
+    for k in FLOAT_PLANES + FIX_PLANES:
+        m = fix_live if k in FIX_PLANES else same_win
+        u = _ulps(pa[k], pb[k])[m]
+        res[k] = float((u <= 4).double().mean()) if u.numel() else 1.0
+        res[k + "_max_ulp"] = float(u.max()) if u.numel() else 0.0
+    res["win_lanes"] = float(same_win.double().mean())
+    return res

@@ -1,0 +1,80 @@
+"""The bounce wrapper and its CUDA kernel, with the port alone (no JAX, so
+the card's tests run here too).
+
+On the CPU: the wrapper takes the plain version for CPU tensors and counts
+no launch.  On the card (marked `cuda`, skipped without a GPU): the kernel
+against its plain version on the same final-scene probe state.  Both round
+every float op alike (the kernel is built with -fmad=false, sin/cos/log
+are float64 rounded once in both), so the bounds are tight: integer planes
+equal on >= 99.5% of lanes, float planes within 4 ulp on >= 99.9% of the
+lanes whose win agrees.
+"""
+import pytest
+import torch
+
+from path_tracer_tpu_torch.engine.wq import _pack_atlas_flat
+from path_tracer_tpu_torch.ops import probe
+from path_tracer_tpu_torch.ops import wave_bounce as WB
+from path_tracer_tpu_torch.scene.presets import build_final_scene
+
+W, H = 800, 600
+KW = dict(t_min=1e-3, max_depth=4, attenuate=False)
+
+
+def _case(device, rows):
+    scene, cam = build_final_scene(W / H, device=device)
+    tables = WB.pack_scene(scene)._replace(
+        cam=WB.pack_camera(cam, W, H, device), seed=11)
+    atlas, _ = _pack_atlas_flat(scene.textures.atlas)
+    st, fix, texel, srv = probe.probe_state(
+        tables, cam, W, H, atlas, rows=rows, bounces=3, max_depth=4, seed=5,
+        tile_rows=8)
+    return tables, st, fix, texel, srv
+
+
+def test_cpu_tensors_take_the_plain_version():
+    tables, st, fix, texel, srv = _case("cpu", rows=8)
+    before = WB.wave_bounce.launches
+    out = WB.wave_bounce(tables, st, fix, texel, srv, tile_rows=8, **KW)
+    assert WB.wave_bounce.launches == before
+    plain = WB.wave_bounce_plain(tables, st, fix, texel, srv, **KW)
+    agree = probe.agreement(out, plain)
+    assert all(agree[k] == 1.0 for k in probe.INT_PLANES), agree
+    assert all(agree[k + "_max_ulp"] == 0.0
+               for k in probe.FLOAT_PLANES + probe.FIX_PLANES), agree
+
+
+def test_rows_must_be_a_multiple_of_tile_rows():
+    tables, st, fix, texel, srv = _case("cpu", rows=8)
+    with pytest.raises(ValueError, match="tile_rows"):
+        WB.wave_bounce(tables, st, fix, texel, srv, tile_rows=64, **KW)
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+def test_kernel_matches_plain_on_card(cuda_device):
+    tables, st, fix, texel, srv = _case(cuda_device, rows=64)
+    before = WB.wave_bounce.launches
+    kern = WB.wave_bounce(tables, st, fix, texel, srv, tile_rows=8, **KW)
+    torch.cuda.synchronize()
+    assert WB.wave_bounce.launches == before + 1
+    plain = WB.wave_bounce_plain(tables, st, fix, texel, srv, **KW)
+    agree = probe.agreement(kern, plain)
+    for k in probe.INT_PLANES:
+        assert agree[k] >= 0.995, agree
+    for k in probe.FLOAT_PLANES + probe.FIX_PLANES:
+        assert agree[k] >= 0.999, agree
+
+
+@pytest.mark.cuda
+def test_kernel_rejects_a_wrong_dtype(cuda_device):
+    tables, st, fix, texel, srv = _case(cuda_device, rows=8)
+    with pytest.raises(ValueError, match="rng"):
+        WB.wave_bounce(tables, st._replace(rng=st.rng.int()), fix, texel,
+                       srv, tile_rows=8, **KW)
