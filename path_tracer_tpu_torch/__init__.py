@@ -1,14 +1,22 @@
-"""path_tracer_tpu_torch — the PyTorch + CUDA port of path_tracer_tpu.
+"""path_tracer_tpu_torch — the PyTorch + CUDA port of the JAX path tracer.
 
-The JAX package `path_tracer_tpu` is the reference; this package mirrors its
-module names so each counterpart is easy to find, and imports neither JAX
-nor anything of the reference.  Entry points take an explicit `device=`
+The JAX package beside this one is the reference; this package mirrors
+its module names so each counterpart is easy to find, and imports neither
+JAX nor anything of the reference.  Entry points take an explicit `device=`
 and default to "cuda"; they run on the CPU only when the caller asks for
 it (the tests do), and raise when CUDA is asked for but absent.
 
 The forward work-queue render (`engine.wq.render_wq`) runs every bounce
 through one hand-written CUDA kernel (`ops/csrc/wave_bounce.cu`), whose
-plain PyTorch version (`ops.bounce_core`) is the executable spec.
+plain PyTorch version (`ops.bounce_core`) is the executable spec.  The
+gradient route (`diff.queued_vjp.render_grad_fb`) records with the same
+kernel and replays under autograd; `parallel.mesh.make_train_step` is the
+one-device SGD step of inverse rendering built on it.  The nearest-sphere
+spike (`ops.spike_pmat`) has its own kernel, `ops/csrc/spike_pmat.cu`.
 """
 
-__version__ = "0.1.0"
+from .diff.queued_vjp import render_grad_fb
+from .parallel.mesh import make_train_step
+
+__all__ = ["render_grad_fb", "make_train_step"]
+__version__ = "0.2.0"

@@ -162,6 +162,78 @@ def _add_in_order(fb: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor,
     return torch.cat([head, fb[n_slots:]])
 
 
+def _plane_idx(bpix: torch.Tensor, n_pix: int, pix_base: float):
+    """Flat framebuffer entries [r-plane, g-plane, b-plane] of each lane's
+    pixel, pix_base subtracted; lanes without one (pix < 0) go to the drop
+    slot 3*n_pix."""
+    valid = bpix >= 0.0
+    base = (bpix - pix_base).long()
+    return [torch.where(valid, base + c * n_pix, 3 * n_pix).reshape(-1)
+            for c in range(3)]
+
+
+def deposit(ex: WqwExtra, fb: torch.Tensor, n_pix: int, max_per: int,
+            pix_base: float = 0.0) -> Tuple[WqwExtra, torch.Tensor]:
+    """Flush both bank slots into the flat framebuffer (n_pix per plane
+    plus the drop slot) in the reference's update order; returns the
+    emptied banks and fb.  An entry takes at most `max_per`
+    contributions (one a banked chunk)."""
+    idx = torch.cat(_plane_idx(ex.bpix0, n_pix, pix_base)
+                    + _plane_idx(ex.bpix1, n_pix, pix_base))
+    vals = torch.cat([v.reshape(-1) for v in (ex.br0, ex.bg0, ex.bb0,
+                                              ex.br1, ex.bg1, ex.bb1)])
+    fb = _add_in_order(fb, idx, vals, 3 * n_pix, max_per)
+    return _zeros_extra(ex.bpix0.shape[0], fb.device), fb
+
+
+def flush_acc(st: WB.WaveState, fb: torch.Tensor, n_pix: int, max_per: int,
+              pix_base: float = 0.0) -> torch.Tensor:
+    """Every lane's chunk accumulator into the framebuffer (stage
+    boundaries and the final residual flush)."""
+    vals = torch.cat([st.accx.reshape(-1), st.accy.reshape(-1),
+                      st.accz.reshape(-1)])
+    return _add_in_order(fb, torch.cat(_plane_idx(st.pix, n_pix, pix_base)),
+                         vals, 3 * n_pix, max_per)
+
+
+def compact(st: WB.WaveState, fx: WB.FixState, new_rows: int):
+    """Pack the live lanes (and their pending fixups) into a (new_rows, 128)
+    state.  Dead lanes with a pending EMIT fixup count as live.  acc must
+    be flushed and wrk summed first (both are zeroed); pad lanes get
+    alive=0 and pix=s=send=-1 so the kernel neither traces nor
+    regenerates them.  Returns (state, fix, perm, valid, nlive): perm is
+    the old flat lane of each new lane, valid masks the real ones, and
+    nlive (a 0-d tensor) may exceed the new width, in which case the
+    lanes past it are dropped."""
+    dev = st.ox.device
+    old = st.ox.numel()
+    w = new_rows * LANE
+    live = ((st.alive > 0.0) | (fx.kind != 0.0)).reshape(-1)
+    live_i = live.long()
+    rank = torch.cumsum(live_i, 0) - live_i
+    tgt = torch.where(live & (rank < w), rank, w)        # w = dropped
+    perm = torch.zeros(w + 1, dtype=torch.long, device=dev).scatter(
+        0, tgt, torch.arange(old, device=dev))[:w]
+    nlive = live_i.sum()
+    valid = (torch.arange(w, device=dev) < nlive).reshape(new_rows, LANE)
+    p2 = perm.reshape(new_rows, LANE)
+    g = lambda a: a.reshape(-1)[p2]
+    wh = torch.where
+    z = torch.zeros((new_rows, LANE), dtype=torch.float32, device=dev)
+    fx2 = WB.FixState(kind=wh(valid, g(fx.kind), 0.0), idx=g(fx.idx),
+                      fwx=g(fx.fwx), fwy=g(fx.fwy), fwz=g(fx.fwz))
+    st2 = WB.WaveState(
+        ox=g(st.ox), oy=g(st.oy), oz=g(st.oz), dx=g(st.dx), dy=g(st.dy),
+        dz=g(st.dz), tm=g(st.tm), rng=g(st.rng), tpx=g(st.tpx),
+        tpy=g(st.tpy), tpz=g(st.tpz), radx=g(st.radx), rady=g(st.rady),
+        radz=g(st.radz), accx=z, accy=z, accz=z,
+        alive=wh(valid, g(st.alive), 0.0), s=wh(valid, g(st.s), -1.0),
+        bnc=g(st.bnc), wrk=z, pix=wh(valid, g(st.pix), -1.0),
+        send=wh(valid, g(st.send), -1.0),
+        strd=wh(valid, g(st.strd), 1.0))
+    return st2, fx2, perm, valid, nlive
+
+
 def wq_window_fb(scene: T.Scene, cam: Camera, width: int, height: int, *,
                  n_pix_loc: int, spp_loc: int, chunk: int, window: int,
                  max_depth: int, attenuate: bool, t_min: float,
@@ -247,64 +319,6 @@ def wq_window_fb(scene: T.Scene, cam: Camera, width: int, height: int, *,
             accz=w(grant, 0.0, st.accz))
         return st, ex, counter + torch.minimum(elig_i.sum(), navail)
 
-    drop = 3 * n_pix_loc        # flat fb: [r-plane, g-plane, b-plane, drop]
-
-    def plane_idx(bpix):
-        valid = bpix >= 0.0
-        base = bpix.long()
-        return [torch.where(valid, base + c * n_pix_loc, drop).reshape(-1)
-                for c in range(3)]
-
-    def deposit(ex: WqwExtra, fb: torch.Tensor):
-        """Flush both bank slots: each of a pixel's chunks is banked once,
-        so an entry takes at most `cpp` contributions."""
-        idx = torch.cat(plane_idx(ex.bpix0) + plane_idx(ex.bpix1))
-        vals = torch.cat([v.reshape(-1) for v in (ex.br0, ex.bg0, ex.bb0,
-                                                  ex.br1, ex.bg1, ex.bb1)])
-        fb = _add_in_order(fb, idx, vals, drop, cpp)
-        return _zeros_extra(rows, dev), fb
-
-    def flush_acc(st: WB.WaveState, fb: torch.Tensor) -> torch.Tensor:
-        """Every lane's chunk accumulator into the framebuffer (drain-stage
-        boundaries and the final residual flush)."""
-        vals = torch.cat([st.accx.reshape(-1), st.accy.reshape(-1),
-                          st.accz.reshape(-1)])
-        return _add_in_order(fb, torch.cat(plane_idx(st.pix)), vals, drop,
-                             cpp)
-
-    def compact(st: WB.WaveState, fx: WB.FixState, new_rows: int):
-        """Pack the live lanes (and their pending fixups) into a
-        (new_rows, 128) state; the caller guarantees they fit.  Dead lanes
-        with a pending EMIT fixup count as live.  acc must be flushed and
-        wrk summed first (both are zeroed); pad lanes get alive=0 and
-        pix=s=send=-1 so the kernel neither traces nor regenerates them."""
-        old = st.ox.numel()
-        w = new_rows * LANE
-        live = ((st.alive > 0.0) | (fx.kind != 0.0)).reshape(-1)
-        live_i = live.long()
-        rank = torch.cumsum(live_i, 0) - live_i
-        tgt = torch.where(live & (rank < w), rank, w)     # w = dropped
-        perm = torch.zeros(w + 1, dtype=torch.long, device=dev).scatter(
-            0, tgt, torch.arange(old, device=dev))[:w]
-        valid = (torch.arange(w, device=dev) < live_i.sum()).reshape(
-            new_rows, LANE)
-        p2 = perm.reshape(new_rows, LANE)
-        g = lambda a: a.reshape(-1)[p2]
-        wh = torch.where
-        z = torch.zeros((new_rows, LANE), dtype=f32, device=dev)
-        fx2 = WB.FixState(kind=wh(valid, g(fx.kind), 0.0), idx=g(fx.idx),
-                          fwx=g(fx.fwx), fwy=g(fx.fwy), fwz=g(fx.fwz))
-        st2 = WB.WaveState(
-            ox=g(st.ox), oy=g(st.oy), oz=g(st.oz), dx=g(st.dx), dy=g(st.dy),
-            dz=g(st.dz), tm=g(st.tm), rng=g(st.rng), tpx=g(st.tpx),
-            tpy=g(st.tpy), tpz=g(st.tpz), radx=g(st.radx), rady=g(st.rady),
-            radz=g(st.radz), accx=z, accy=z, accz=z,
-            alive=wh(valid, g(st.alive), 0.0), s=wh(valid, g(st.s), -1.0),
-            bnc=g(st.bnc), wrk=z, pix=wh(valid, g(st.pix), -1.0),
-            send=wh(valid, g(st.send), -1.0),
-            strd=wh(valid, g(st.strd), 1.0))
-        return st2, fx2
-
     def nlive(st, fx):
         # lanes with a pending fixup still owe work or radiance
         return ((st.alive > 0.0) | (fx.kind != 0.0)).sum()
@@ -330,7 +344,7 @@ def wq_window_fb(scene: T.Scene, cam: Camera, width: int, height: int, *,
             if granted < n_chunks:      # else every refill is a no-op
                 st, ex, counter = refill(st, ex, counter, fx)
             st, fx = step(st, fx, k)
-        ex, fb = deposit(ex, fb)
+        ex, fb = deposit(ex, fb, n_pix_loc, cpp)
         wins += 1
         granted, live = torch.stack([counter, nlive(st, fx)]).tolist()
     iters = wins * window
@@ -339,8 +353,8 @@ def wq_window_fb(scene: T.Scene, cam: Camera, width: int, height: int, *,
     wrk_tot = 0.0
     for i, stiles in enumerate(stage_tiles):
         wrk_tot += float(st.wrk.sum(dtype=torch.float64))
-        fb = flush_acc(st, fb)
-        st, fx = compact(st, fx, stiles * tile_rows)
+        fb = flush_acc(st, fb, n_pix_loc, cpp)
+        st, fx = compact(st, fx, stiles * tile_rows)[:2]
         next_cap = caps[i + 1] if i + 1 < len(caps) else 0
         w2 = 0
         live = int(nlive(st, fx))
@@ -353,9 +367,9 @@ def wq_window_fb(scene: T.Scene, cam: Camera, width: int, height: int, *,
         lane_steps += float(w2 * window * stiles * tile_rows * LANE)
 
     # residual flush: each lane's last chunk was never re-granted
-    fb = flush_acc(st, fb)
+    fb = flush_acc(st, fb, n_pix_loc, cpp)
     segs = wrk_tot + float(st.wrk.sum(dtype=torch.float64))
-    fb3 = fb[:drop].reshape(3, n_pix_loc).transpose(0, 1)
+    fb3 = fb[:3 * n_pix_loc].reshape(3, n_pix_loc).transpose(0, 1)
     return fb3, segs, iters, lane_steps
 
 

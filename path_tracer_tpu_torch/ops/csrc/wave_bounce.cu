@@ -1,8 +1,8 @@
 // The bounce megakernel for Hopper (sm_90a): one path segment for every
 // lane of the work-queue driver.
 //
-// Replaces the reference package's TPU kernel
-// path_tracer_tpu/ops/pallas/wave_bounce.py:wave_bounce (the pallas_call
+// Replaces the JAX reference package's TPU kernel
+// ops/pallas/wave_bounce.py:wave_bounce (the pallas_call
 // of _wave_kernel, which inlines ops/pallas/bounce_core.py:advance and
 // camera_ray_block).  Its plain PyTorch version, the executable spec, is
 // path_tracer_tpu_torch/ops/bounce_core.py:wave_step; every float op below

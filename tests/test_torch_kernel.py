@@ -1,5 +1,5 @@
-"""The bounce wrapper and its CUDA kernel, with the port alone (no JAX, so
-the card's tests run here too).
+"""The kernels' wrappers and their CUDA kernels, with the port alone (no
+JAX, so the card's tests run here too).
 
 On the CPU: the wrapper takes the plain version for CPU tensors and counts
 no launch.  On the card (marked `cuda`, skipped without a GPU): the kernel
@@ -7,13 +7,15 @@ against its plain version on the same final-scene probe state.  Both round
 every float op alike (the kernel is built with -fmad=false, sin/cos/log
 are float64 rounded once in both), so the bounds are tight: integer planes
 equal on >= 99.5% of lanes, float planes within 4 ulp on >= 99.9% of the
-lanes whose win agrees.
+lanes whose win agrees.  The nearest-sphere spike (K2) is bit-equal to
+its plain version on the card.
 """
 import pytest
 import torch
 
 from path_tracer_tpu_torch.engine.wq import _pack_atlas_flat
 from path_tracer_tpu_torch.ops import probe
+from path_tracer_tpu_torch.ops import spike_pmat as SP
 from path_tracer_tpu_torch.ops import wave_bounce as WB
 from path_tracer_tpu_torch.scene.presets import build_final_scene
 
@@ -78,3 +80,14 @@ def test_kernel_rejects_a_wrong_dtype(cuda_device):
     with pytest.raises(ValueError, match="rng"):
         WB.wave_bounce(tables, st._replace(rng=st.rng.int()), fix, texel,
                        srv, tile_rows=8, **KW)
+
+
+@pytest.mark.cuda
+def test_spike_pmat_kernel_matches_plain_on_card(cuda_device):
+    args = SP.make_inputs(SP.TILE_ROWS, seed=1, device=cuda_device)
+    before = SP.spike_pmat.launches
+    t, meta = SP.spike_pmat(*args)
+    torch.cuda.synchronize()
+    assert SP.spike_pmat.launches == before + 1
+    pt, pm = SP.spike_pmat_plain(*args)
+    assert torch.equal(t, pt) and torch.equal(meta, pm)
