@@ -2,22 +2,28 @@
 """Smoke run of the PyTorch + CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py            # needs one CUDA GPU
+    python3 chip_smoke.py --old-kernel OLD/wave_bounce.cu
+        # also times an earlier K1 source (same C interface) beside the
+        # current one in phase 10
 
 Phases, each of which raises on failure (exit code != 0):
 1. device: CUDA must be available; prints the GPU name and power limit;
 2. build: compiles every kernel from path_tracer_tpu_torch/ops/csrc with
-   nvcc, one process per source, all at once (ptxas register report);
+   nvcc, one process per source, all at once; prints ptxas's registers,
+   spills and shared memory for each kernel instantiation;
 3. kernel against plain: one `wave_bounce` call through the CUDA kernel
    and through its plain PyTorch version, both on the card, on a final-
    scene state at full width (800x600: 483,328 lanes) a few bounces in,
-   with stalls and pending fixups; prints the agreement and the times;
+   with stalls and pending fixups; prints the agreement, the times and
+   K1's resident blocks an SM for each instantiation;
 4. small frame: the final scene at 32x24, 4 spp, depth 8 rendered through
    the kernel (device="cuda") and through the plain version
    (device="cpu"), held to the work-queue test envelope;
 5. main path: `render_wq` on the final scene at 800x600, depth 50, 80 spp
    (bench.py's setting), after a short warm-up; prints bench.py's JSON
    fields with "backend": "cuda", checks the kernel's launch count equals
-   the bounce iterations, and writes the frame to build/ (git-ignored);
+   the bounce iterations, prints the CUDA events around each launch
+   grouped by lane count, and writes the frame to build/ (git-ignored);
 6. the nearest-sphere spike (K2) against its plain version at the
    reference tool's largest call (4096 x 128 = 524,288 rays, P = 512):
    t and meta bit-equal, the times and the bound; then its entry point
@@ -37,17 +43,31 @@ Phases, each of which raises on failure (exit code != 0):
 9. train steps: 3 SGD steps (lr 0.05) of `make_train_step` at the same
    size from a +0.2 material-colour perturbation, the target recorded at
    the true params; the losses must be finite and fall, and the kernel's
-   launches over the three steps equal three times the recorded steps.
-Then the kernel table as one JSON line: K1 once for the forward path
-(phase 5's launches, phase 3's times) and once for the gradient route
-(phase 8's launches and times, phase 9's launches as `launches_train`),
+   launches over the three steps equal three times the recorded steps;
+10. K1 at every width the paths use: probe states at 3,776 rows (phase
+   3's) and at the forward drain stages' 896, 192 and 64 rows, and the
+   inputs of one stage-A (128 rows) and one stage-B (8 rows) launch of
+   phase 8's checked recording.  At each width: the plain version's
+   time, then the kernel forced to each K (bit-equal to the plain
+   version on every plane, and timed), then in turns the kernel at the
+   wrapper's K, the earlier kernel given by --old-kernel, and the kernel
+   again; the wrapper's K is held to phase 3's criteria.
+Kernel times are CUDA events around 20 launches queued behind a device
+sleep, so the launches run back to back and host launch latency is not
+in them.  Then the kernel table as one JSON line: K1 once for the forward
+path (phase 5's launches, the full-width time) and once for the gradient
+route (phase 8's launches, phase 9's as `launches_train`, the stage
+times weighted by the stages' launches), each with its per-width times,
 and K2; the card's name and power limit; and last
 {"ok": true, "device": {...}}.  Nothing here imports JAX.
 """
 from __future__ import annotations
 
+import argparse
+import ctypes
 import json
 import os
+import re
 import subprocess
 import time
 
@@ -58,6 +78,7 @@ W, H, DEPTH, SPP = 800, 600, 50, 80
 GW, GH, GSPP = 400, 300, 4        # tools/bench_grad.py's gradient setting
 TRAIN_LR = 0.05                   # the reference's default SGD rate
 PMAT_ROWS = 4096                  # tools/spike_pmat.py's largest call
+DRAIN_ROWS = (896, 192, 64)       # render_wq's drain stages at 800x600
 HBM_BYTES_S = 3.35e12     # H100 SXM HBM3 rate (NVIDIA data sheet)
 FP32_OPS_S = 67e12        # H100 SXM FP32 peak outside the tensor cores
 
@@ -67,16 +88,45 @@ def log(msg: str) -> None:
 
 
 def cuda_ms(fn, reps: int) -> float:
-    """Mean device time of fn() over `reps` calls, by CUDA events."""
+    """Mean device time of fn() over `reps` calls, by CUDA events.  The
+    calls are queued behind a device sleep (~0.5 ms a call) so that the
+    host's launch overhead is hidden and the kernels run back to back."""
     fn()
     torch.cuda.synchronize()
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda._sleep(1_000_000 * reps)
     start.record()
     for _ in range(reps):
         fn()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def ptxas_report(text: str) -> list:
+    """(kernel, registers, spill stores, spill loads, static shared bytes)
+    for each entry function in nvcc's -Xptxas -v output."""
+    rows, fn = [], None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            fn = dict(name=m.group(1), spill_st=0, spill_ld=0)
+            rows.append(fn)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and fn is not None:
+            fn["spill_st"], fn["spill_ld"] = int(m.group(1)), int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn is not None:
+            fn["regs"] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", line)
+            fn["smem"] = int(sm.group(1)) if sm else 0
+    for r in rows:
+        k = re.search(r"wave_kernelILi(\d+)ELi(\d+)E", r["name"])
+        if k:
+            r["name"] = f"wave_kernel<NMED={k.group(1)}, K={k.group(2)}>"
+    return rows
 
 
 def fold_ops_per_lane(tables) -> int:
@@ -140,7 +190,7 @@ def time_host(fn, reps: int) -> float:
     return (time.perf_counter() - t0) / reps
 
 
-def main() -> list:
+def main(old_kernel=None) -> list:
     # ---- 1. device -----------------------------------------------------
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
@@ -164,9 +214,10 @@ def main() -> list:
     log(f"[2] build: {json.dumps(took)} in "
         f"{time.perf_counter() - t0:.1f} s wall")
     for name, text in build.build_log.items():
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"    {name}: {line.strip()}")
+        for r in ptxas_report(text):
+            log(f"    {name}: {r['name']}: {r.get('regs')} registers, spill "
+                f"stores {r['spill_st']} B, loads {r['spill_ld']} B, "
+                f"{r.get('smem')} B static shared memory")
 
     # ---- 3. kernel against plain at full width ---------------------------
     scene, cam = build_final_scene(W / H, device=dev)
@@ -192,6 +243,11 @@ def main() -> list:
     log(f"[3] kernel {ms:.4f} ms/launch, plain {plain_ms:.3f} ms, bound "
         f"{max(t_bytes, t_ops):.4f} ms (bytes {nbytes} -> {t_bytes:.4f} ms, "
         f"fold ops {ops} -> {t_ops:.4f} ms)")
+    occ = {f"NMED={m}": {k: WB.occupancy(m, k, tables.fold.shape[0])
+                         for k in WB.SPLITS} for m in range(1, WB.MAX_MED + 1)}
+    log(f"[3] K1 resident blocks an SM, by K, with "
+        f"this scene's {tables.fold.shape[0] * 16}-byte fold table: "
+        f"{json.dumps(occ)}")
     kernel_row = dict(
         name="wave_bounce", path="forward", route="cuda",
         source="path_tracer_tpu_torch/ops/csrc/wave_bounce.cu",
@@ -234,7 +290,7 @@ def main() -> list:
     dt = time.perf_counter() - t0
     launches, events = WB.wave_bounce.launches, WB.wave_bounce.events
     WB.wave_bounce.events = None
-    kern_ms = sum(s.elapsed_time(e) for s, e in events)
+    kern_ms = sum(s.elapsed_time(e) for _, s, e in events)
     samples = W * H * SPP
     mray_s = segs / dt / 1e6
     log(json.dumps({
@@ -252,6 +308,14 @@ def main() -> list:
         f"({100 * kern_ms / 1e3 / dt:.1f}% of wall)")
     if launches != iters or launches == 0:
         raise AssertionError(f"launches {launches} != wq_iters {iters}")
+    by_width = {}
+    for lanes, s, e in events:
+        n, ms_ = by_width.get(lanes, (0, 0.0))
+        by_width[lanes] = (n + 1, ms_ + s.elapsed_time(e))
+    log("[5] events around each launch, by lane count: " + "; ".join(
+        f"{lanes} lanes (K={WB.split_for(lanes)}): {n} launches, "
+        f"{ms_:.1f} ms, {ms_ / n:.4f} ms each"
+        for lanes, (n, ms_) in sorted(by_width.items(), reverse=True)))
     kernel_row["launches"] = launches
     frame = img.cpu().numpy()
     if frame.shape != (H, W, 3) or not np.isfinite(frame).all():
@@ -264,8 +328,14 @@ def main() -> list:
 
     pmat_row = phase_pmat(dev)
     phase_grad_small()
-    grad_row = phase_grad_full(dev)
+    grad_row, stage_cases, stage_launches = phase_grad_full(dev)
     grad_row["launches_train"] = phase_train(dev)
+    widths = phase_widths(dev, stage_cases, old_kernel)
+    kernel_row["widths"] = widths[:-len(stage_cases)]
+    grad_row["widths"] = widths[-len(stage_cases):]
+    # the gradient route's time a launch: each stage's, by its launches
+    grad_row["ms"] = sum(n * w["ms"] for n, w in zip(
+        stage_launches, grad_row["widths"])) / sum(stage_launches)
     return [kernel_row, grad_row, pmat_row]
 
 
@@ -407,7 +477,7 @@ def phase_grad_full(dev) -> dict:
     t_rec = time.perf_counter() - t0
     launches, events = WB.wave_bounce.launches, WB.wave_bounce.events
     WB.wave_bounce.events = None
-    kern_ms = [s.elapsed_time(e) for s, e in events]
+    kern_ms = [s.elapsed_time(e) for _, s, e in events]
     kern_s = sum(kern_ms) / 1e3
     steps = cfg["n_windows"] * cfg["window"]
     steps_b = cfg["n_windows_b"] * cfg["window"]
@@ -423,13 +493,15 @@ def phase_grad_full(dev) -> dict:
                              f"{steps + steps_b}")
     del rec
 
-    chk = record_checked(scene, cam, w, h, rcfg)
+    chk = record_checked(scene, cam, w, h, rcfg,
+                         keep=(steps // 2, steps + steps_b // 2))
     if chk["n"] != launches:
         raise AssertionError(f"the checked recording launched {chk['n']} "
                              f"times, the counted one {launches}")
     for tag, ks, c in (("A", kern_ms[:steps], chk[cfg["rows"]]),
                        ("B", kern_ms[steps:], chk[cfg["rows_b"]])):
-        log(f"[8] stage {tag}: kernel {sum(ks) / len(ks):.4f} ms/launch, "
+        log(f"[8] stage {tag}: events around each launch {sum(ks) / len(ks):.4f}"
+            f" ms (host launch latency included), "
             f"plain {c['plain_ms'] / c['n']:.3f} ms, bound "
             f"{c['bound_ms'] / c['n']:.4f} ms (bytes "
             f"{c['bytes_ms'] / c['n']:.4f} ms, fold ops "
@@ -468,25 +540,35 @@ def phase_grad_full(dev) -> dict:
         "grad_step_mray_s": round(segs / t_both / 1e6, 3)}))
     log(f"[8] peak device memory over forward + value_and_grad "
         f"{peak:.2f} GiB")
-    return row
+    stage_cases = [(f"gradient stage {tag}, launch {n}", chk["kept"][n])
+                   for tag, n in zip("AB", sorted(chk["kept"]))]
+    return row, stage_cases, (steps, steps_b)
 
 
-def record_checked(scene, cam, w: int, h: int, rcfg: dict) -> dict:
+def record_checked(scene, cam, w: int, h: int, rcfg: dict,
+                   keep=()) -> dict:
     """One more recording of the same schedule in which every wave_bounce
     launch is held to phase 3's criteria against the plain version on the
     launch's own inputs (state, pending fixups, texels, texel-service
-    mask).  Returns the launch count, the largest float difference, and
-    per stage (keyed by its row count) and in all the summed plain
-    version's ms and bounds."""
+    mask).  Returns the launch count, the largest float difference, per
+    stage (keyed by its row count) and in all the summed plain version's
+    ms and bounds, and under "kept" a copy of the inputs of the launches
+    numbered in `keep`."""
     from path_tracer_tpu_torch.diff import queued_vjp as Q
     from path_tracer_tpu_torch.ops import wave_bounce as WB
     launch = WB._launch
     keys = ("n", "plain_ms", "bytes_ms", "ops_ms", "bound_ms")
-    acc = dict(dict.fromkeys(keys, 0), max_abs=0.0)
+    acc = dict(dict.fromkeys(keys, 0), max_abs=0.0, kept={})
 
-    def checked(tables, st, fix, texel, srv, t_min, max_depth, attenuate):
+    def checked(tables, st, fix, texel, srv, t_min, max_depth, attenuate,
+                split=None):
+        if acc["n"] in keep:
+            acc["kept"][acc["n"]] = (tables, *(
+                type(x)(*[t.clone() for t in x]) if isinstance(x, tuple)
+                else x.clone() for x in (st, fix, texel, srv)), dict(
+                    t_min=t_min, max_depth=max_depth, attenuate=attenuate))
         outs = launch(tables, st, fix, texel, srv, t_min, max_depth,
-                      attenuate)
+                      attenuate, split)
         start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         start.record()
         plain = WB.wave_bounce_plain(tables, st, fix, texel, srv,
@@ -568,8 +650,102 @@ def phase_train(dev) -> int:
     return launches
 
 
+def forward_cases(dev) -> list:
+    """Probe states at the forward path's widths: phase 3's full width
+    (the same seed, so the same state) and the drain stages'."""
+    from path_tracer_tpu_torch.engine.wq import _pack_atlas_flat
+    from path_tracer_tpu_torch.ops import probe
+    from path_tracer_tpu_torch.ops import wave_bounce as WB
+    from path_tracer_tpu_torch.scene.presets import build_final_scene
+    scene, cam = build_final_scene(W / H, device=dev)
+    tables = WB.pack_scene(scene)._replace(
+        cam=WB.pack_camera(cam, W, H, dev), seed=0)
+    atlas, _ = _pack_atlas_flat(scene.textures.atlas)
+    kw = dict(t_min=1e-3, max_depth=DEPTH, attenuate=False)
+    rows = -(-W * H // (64 * 128)) * 64
+    return [(name, (tables, *probe.probe_state(
+        tables, cam, W, H, atlas, rows=r, bounces=3, max_depth=DEPTH,
+        seed=seed, tile_rows=64), kw))
+        for name, r, seed in [("forward, full width", rows, 1)]
+        + [(f"forward drain, {r} rows", r, 2) for r in DRAIN_ROWS]]
+
+
+def phase_widths(dev, stage_cases, old_kernel) -> list:
+    """10. K1 at each width the paths use: the plain version, every K,
+    and in turns the wrapper's K, the earlier kernel (if given) and the
+    wrapper's K again.  Returns a row a width."""
+    from path_tracer_tpu_torch.ops import build
+    from path_tracer_tpu_torch.ops import wave_bounce as WB
+    cases = forward_cases(dev) + stage_cases
+    old = None
+    if old_kernel:
+        path = build.BUILD_DIR / "libwave_bounce_old.so"
+        build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        subprocess.run([build.nvcc(), *build.NVCC_FLAGS, "-o", str(path),
+                        old_kernel], check=True, capture_output=True)
+        old = ctypes.CDLL(str(path))
+        old.wave_bounce_launch.argtypes = [ctypes.c_void_p] * 2
+        old.wave_bounce_launch.restype = ctypes.c_int
+        old.wave_bounce_error_string.argtypes = [ctypes.c_int]
+        old.wave_bounce_error_string.restype = ctypes.c_char_p
+    new_lib = WB._lib
+
+    def bits(out):
+        return [x.view(torch.int32) if x.dtype == torch.float32 else x
+                for x in (*out.state, *out.fix, out.win, out.t_hit)]
+
+    rows = []
+    for name, (tables, st, fix, texel, srv, kw) in cases:
+        lanes = st.ox.numel()
+        call = lambda **k: WB.wave_bounce(tables, st, fix, texel, srv,
+                                          tile_rows=st.ox.shape[0], **kw, **k)
+        plain = WB.wave_bounce_plain(tables, st, fix, texel, srv, **kw)
+        plain_bits = bits(plain)
+        plain_ms = cuda_ms(lambda: WB.wave_bounce_plain(
+            tables, st, fix, texel, srv, **kw), 2)
+        by_k = {}
+        for k in WB.SPLITS:
+            if not all(torch.equal(x, y) for x, y in
+                       zip(bits(call(_split=k)), plain_bits)):
+                raise AssertionError(f"{name}: K={k} is not bit-equal to "
+                                     f"the plain version")
+            by_k[k] = cuda_ms(lambda: call(_split=k), 20)
+        ms = [cuda_ms(call, 20)]
+        old_ms = None
+        if old is not None:
+            WB._lib = lambda: old
+            try:
+                if not all(torch.equal(x, y) for x, y in
+                           zip(bits(call()), plain_bits)):
+                    raise AssertionError(f"{name}: the earlier kernel is not "
+                                         f"bit-equal to the plain version")
+                old_ms = cuda_ms(call, 20)
+            finally:
+                WB._lib = new_lib
+        ms.append(cuda_ms(call, 20))
+        _, max_abs = k1_compare(call(), plain, name)
+        nbytes, ops = k1_bound(tables, st, fix, srv)
+        t_b, t_o = nbytes / HBM_BYTES_S * 1e3, ops / FP32_OPS_S * 1e3
+        row = dict(what=name, lanes=lanes, K=WB.split_for(lanes),
+                   ms=min(ms), ms_turns=ms, old_ms=old_ms, plain_ms=plain_ms,
+                   bound_ms=max(t_b, t_o),
+                   bound_by="bytes" if t_b >= t_o else "operations",
+                   max_abs_err=max_abs, ms_by_K=by_k)
+        log(f"[10] {name}, {lanes} lanes: K={row['K']} {ms[0]:.4f} / "
+            f"{ms[1]:.4f} ms, earlier kernel "
+            f"{'not given' if old_ms is None else f'{old_ms:.4f} ms'}, plain "
+            f"{plain_ms:.3f} ms, bound {row['bound_ms']:.5f} ms "
+            f"({row['bound_by']}); every K bit-equal, ms by K "
+            f"{json.dumps({k: round(v, 4) for k, v in by_k.items()})}")
+        rows.append(row)
+    return rows
+
+
 if __name__ == "__main__":
-    rows = main()
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--old-kernel", default=None,
+                    help="an earlier csrc/wave_bounce.cu to time beside K1")
+    rows = main(ap.parse_args().old_kernel)
     print(json.dumps({"kernels": rows}))
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

@@ -159,13 +159,32 @@ def _sphere_fold(sph, lo, hi, moving, ox, oy, oz, dx, dy, dz, tm, a,
     return bk, bidx
 
 
+def sphere_fold(sph, sph_segs, ox, oy, oz, dx, dy, dz, tm, a, tmin_a):
+    """The sphere fold over every media segment in table order: the best
+    (key, index) of each lane, index 0 and key inf without a hit, and the
+    running key after each segment but the last (the media clamp reads
+    it).  `sph_segs` is the (M+1, 2) table as a list."""
+    bk = torch.full_like(a, INF)
+    bidx = torch.zeros_like(a)
+    sph_snap = []
+    start = 0
+    for mseg, (static_end, end) in enumerate(sph_segs):
+        bk, bidx = _sphere_fold(sph, start, static_end, False, ox, oy, oz,
+                                dx, dy, dz, tm, a, tmin_a, bk, bidx)
+        bk, bidx = _sphere_fold(sph, static_end, end, True, ox, oy, oz,
+                                dx, dy, dz, tm, a, tmin_a, bk, bidx)
+        if mseg < len(sph_segs) - 1:
+            sph_snap.append(bk)
+        start = end
+    return bk, bidx, sph_snap
+
+
 def advance(tables, ox, oy, oz, dx, dy, dz, tm, rng, alive,
             *, t_min: float) -> Adv:
     """One path segment for every lane; `alive` (bool) selects the lanes
     that trace.  Pure function of the values."""
     sph, rect, tri, med, spec = (tables.sph, tables.rect, tables.tri,
                                  tables.med, tables.spec)
-    sph_segs = tables.sph_segs.tolist()
     rect_segs = tables.rect_segs.tolist()
     tri_segs = tables.tri_segs.tolist()
     n_med = med.shape[1]
@@ -180,19 +199,8 @@ def advance(tables, ox, oy, oz, dx, dy, dz, tm, rng, alive,
     one = zero + 1.0
 
     # ---- sphere fold with per-media-segment snapshots ----------------------
-    bk = torch.full_like(a, INF)
-    bidx = zero
-    sph_snap = []
-    start = 0
-    for mseg in range(n_med + 1):
-        static_end, end = sph_segs[mseg]
-        bk, bidx = _sphere_fold(sph, start, static_end, False, ox, oy, oz,
-                                dx, dy, dz, tm, a, tmin_a, bk, bidx)
-        bk, bidx = _sphere_fold(sph, static_end, end, True, ox, oy, oz,
-                                dx, dy, dz, tm, a, tmin_a, bk, bidx)
-        if mseg < n_med:
-            sph_snap.append(bk)
-        start = end
+    bk, bidx, sph_snap = sphere_fold(sph, tables.sph_segs.tolist(), ox, oy,
+                                     oz, dx, dy, dz, tm, a, tmin_a)
     s_t = bk * inv_a
 
     # winner attributes: a direct indexed load (sphere 0 when nothing hit)

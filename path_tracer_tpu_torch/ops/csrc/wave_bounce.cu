@@ -11,20 +11,42 @@
 // (both evaluate those in double and round once).
 //
 // What bounds it on the H100.  Per launch it moves the lane state once
-// (~240 bytes a lane in and out, ~115 MB at 483,328 lanes: ~35 us at
-// 3.35 TB/s), but it executes ~25 float ops per (lane, sphere) pair in the
-// sphere fold: ~490 spheres x 483K lanes x 25 = ~6 GFLOP, ~0.1-0.2 ms at
-// the FP32 rate.  It is bound by operations, in the fold.  The design:
-//   * one thread per lane; the ray state stays in registers for the whole
-//     segment, each plane is read and written once, coalesced;
-//   * every thread of a warp reads the same table row in the fold, so the
-//     tables are read through the read-only path (__ldg): one broadcast
-//     load per row, no shared-memory staging needed at ~30 KB of spheres;
-//   * the fold carries only (best key, best index) and the winner's
-//     attributes come from one direct indexed load afterwards;
-//   * a lane that does not advance (dead or stalled) skips the segment,
-//     and a lane runs only its own material's scatter branch (the draw
-//     masks are mutually exclusive, so draw counts are unchanged);
+// (~240 bytes a lane in and out, ~118 MB at 483,328 lanes: ~35 us at
+// 3.35 TB/s), but an advancing lane executes ~17 float ops for each
+// static sphere and ~25 for each moving one in the sphere fold: ~9,900
+// ops a lane on the final scene's 496 spheres, ~2.8 GFLOP for the 271,536
+// advancing lanes of a full-width call, 0.04 ms at 67 TFLOP/s (a rate
+// that counts an FMA as two ops; with -fmad=false each op is its own
+// instruction, so ~50% of it is the ceiling).  It is bound by the fold's
+// operations, and narrow calls (1,024-24,576 lanes) by latency.  The
+// design:
+//   * the fold reads a copy of its sphere columns as 16-byte records
+//     (wave_bounce.fold_table: one record a static sphere, three a moving
+//     one), staged in shared memory by one bulk asynchronous copy that
+//     completes on an mbarrier, issued at a block's first tile with an
+//     advancing lane: one broadcast 16-byte load per record;
+//   * persistent blocks: at most SMs x resident blocks, each taking an
+//     equal span of lanes and walking over it in tiles, so the table is
+//     staged once per block and no block carries an extra whole tile;
+//   * per tile, a ballot and a prefix count write the advancing lanes'
+//     rays to a dense list in shared memory and the fold runs over that
+//     list only, so dead and stalled lanes leave no idle threads in it;
+//     a thread computes the quadratics of four spheres before it keeps
+//     any of them, so it has several in flight;
+//   * K threads fold one lane (K = 1..32, a template parameter the
+//     wrapper picks from the lane count so that narrow calls fill the
+//     card): each takes every K-th sphere of each media segment, and the
+//     K partial (key, index) pairs are reduced with warp shuffles in
+//     lexicographic order, which is the sequential fold's strict first
+//     minimum; the per-segment snapshots are the least partial keys;
+//   * the per-lane rest (rect and triangle folds, merge, media, hit
+//     record, textures, scatter, policy, regeneration) runs one thread a
+//     lane; the winner's attributes come from one direct load of the
+//     sphere table; a lane runs only its own material's scatter branch
+//     (the draw masks are mutually exclusive, so draw counts are kept);
+//   * K = 1 runs 4 blocks an SM at 64 registers and reads a lane's inputs
+//     after the fold; K > 1 runs 3 at 80 and reads them in one round at
+//     the start of the tile, which is what a latency-bound call needs;
 //   * the TPU layout workarounds (2-carry fold with lane-gather
 //     reconstruction, 16-way texture sweep, unrolled scans) are dropped;
 //     the win record, draw counts and per-segment snapshots are kept.
@@ -69,6 +91,9 @@ struct WaveArgs {
   int n_lanes, p_sph, p_rect, p_tri, n_med, max_depth, attenuate;
   unsigned int seed;
   float t_min;
+  const float4* fold;      // (fold_recs, 4): wave_bounce.fold_table
+  int fold_recs;
+  int split;               // K, threads a lane's sphere fold is split across
 };
 
 namespace {
@@ -180,67 +205,148 @@ struct Adv {
   float ndx, ndy, ndz, sky_x, sky_y, sky_z, wscan, wcls, t_hit;
 };
 
-// One path segment for an advancing lane (bounce_core.advance).
+// ---- the sphere fold in key = t*|d|^2 space (sphere.hpp:59-106) ---------
+// The ray of one advancing lane as the fold reads it.
+struct FoldRay {
+  float ox, oy, oz, dx, dy, dz, tm, a, tmin_a;
+};
+
+// -b and the discriminant of sphere j, from its record(s) in the staged
+// fold table: record j + base for a static sphere, records 3j + base ..
+// 3j + base + 2 for a moving one (its center at the ray's time first).
+template <bool MOVING>
+__device__ __forceinline__ void quad(const float4* tab, int j, int base,
+                                     const FoldRay& r, float& nb,
+                                     float& disc) {
+  float cx, cy, cz, r2;
+  if (MOVING) {
+    const float4 c = tab[3 * j + base];      // cx, cy, cz, r^2 at t0
+    const float4 v = tab[3 * j + base + 1];  // vx, vy, vz, t0
+    const float inv_dt = tab[3 * j + base + 2].x;
+    const float kmov = (r.tm - v.w) * inv_dt;
+    cx = c.x + kmov * v.x;
+    cy = c.y + kmov * v.y;
+    cz = c.z + kmov * v.z;
+    r2 = c.w;
+  } else {
+    const float4 c = tab[j + base];          // cx, cy, cz, r^2
+    cx = c.x;
+    cy = c.y;
+    cz = c.z;
+    r2 = c.w;
+  }
+  const float cox = cx - r.ox;
+  const float coy = cy - r.oy;
+  const float coz = cz - r.oz;
+  nb = cox * r.dx + coy * r.dy + coz * r.dz;  // = -b
+  const float cc = cox * cox + coy * coy + coz * coz - r2;
+  disc = nb * nb - r.a * cc;
+}
+
+// Sphere j replaces the running (key, index) only when strictly closer.
+__device__ __forceinline__ void keep_nearer(float nb, float disc,
+                                            float tmin_a, int j, float& bk,
+                                            int& bidx) {
+  if (disc > 0.f) {  // strict: a tangent misses
+    const float sq = sqrtf(disc);
+    const float k1 = nb - sq, k2 = nb + sq;
+    const float cand = k1 > tmin_a ? k1 : k2;
+    if (cand > tmin_a && cand < bk) {
+      bk = cand;
+      bidx = j;
+    }
+  }
+}
+
+// Spheres lo, lo+K, ... below hi in order.  The quadratics of a batch of
+// spheres are independent and computed together, so one thread keeps
+// several in flight; they are then kept in order.
+constexpr int STATIC_BATCH = 4;
+constexpr int MOVING_BATCH = 4;
+
+template <int K, bool MOVING>
+__device__ __forceinline__ void fold_run(const float4* tab, int lo, int hi,
+                                         int base, const FoldRay& r,
+                                         float& bk, int& bidx) {
+  constexpr int B = MOVING ? MOVING_BATCH : STATIC_BATCH;
+  int j = lo;
+  for (; j + (B - 1) * K < hi; j += B * K) {
+    float nb[B], disc[B];
+#pragma unroll
+    for (int u = 0; u < B; ++u)
+      quad<MOVING>(tab, j + u * K, base, r, nb[u], disc[u]);
+#pragma unroll
+    for (int u = 0; u < B; ++u)
+      keep_nearer(nb[u], disc[u], r.tmin_a, j + u * K, bk, bidx);
+  }
+  for (; j < hi; j += K) {
+    float nb, disc;
+    quad<MOVING>(tab, j, base, r, nb, disc);
+    keep_nearer(nb, disc, r.tmin_a, j, bk, bidx);
+  }
+}
+
+// One thread's share of one lane's fold: spheres start+sub, start+sub+K,
+// ... of each media segment's static run and of its moving run, read from
+// the staged fold table (one record a static sphere, three a moving one).
+// snap[m] is the running key after segment m.  The caller starts the
+// carry at (inf, 0).
+template <int NMED, int K>
+__device__ __forceinline__ void fold_share(const float4* tab, const int* segs,
+                                           int sub, const FoldRay& r,
+                                           float& bk, int& bidx,
+                                           float (&snap)[NMED]) {
+  int start = 0, moved = 0;  // moving spheres before the segment
+#pragma unroll
+  for (int m = 0; m <= NMED; ++m) {
+    const int static_end = __ldg(&segs[2 * m]), end = __ldg(&segs[2 * m + 1]);
+    fold_run<K, false>(tab, start + sub, static_end, 2 * moved, r, bk, bidx);
+    fold_run<K, true>(tab, static_end + sub, end, 2 * (moved - static_end),
+                      r, bk, bidx);
+    moved += end - static_end;
+    if (m < NMED) snap[m] = bk;
+    start = end;
+  }
+}
+
+// Reduce the K partial folds of one lane (K adjacent threads of a warp;
+// every thread of the warp takes part).  The least (key, index) pair wins
+// in lexicographic order: that is the sequential fold's first strict
+// minimum, and (inf, 0) without a hit, as an inf or NaN candidate never
+// enters either.  Each snapshot is the least partial key, the prefix of
+// the fold up to its segment.
+template <int NMED, int K>
+__device__ __forceinline__ void reduce_split(float& bk, int& bidx,
+                                             float (&snap)[NMED]) {
+#pragma unroll
+  for (int off = 1; off < K; off <<= 1) {
+    const float ok = __shfl_xor_sync(0xffffffffu, bk, off);
+    const int oi = __shfl_xor_sync(0xffffffffu, bidx, off);
+    if (ok < bk || (ok == bk && oi < bidx)) {
+      bk = ok;
+      bidx = oi;
+    }
+#pragma unroll
+    for (int m = 0; m < NMED; ++m)
+      snap[m] = fminf(snap[m], __shfl_xor_sync(0xffffffffu, snap[m], off));
+  }
+}
+
+// One path segment for an advancing lane (bounce_core.advance), given its
+// sphere fold's result: the best key and index and the per-segment keys.
 template <int NMED>
 __device__ __forceinline__ void advance(const WaveArgs& A, float ox, float oy,
                                         float oz, float dx, float dy,
                                         float dz, float tm, unsigned int rng,
+                                        const float bk, const int bidx,
+                                        const float (&sph_snap)[NMED],
                                         Adv& o) {
   const float tmin_ = A.t_min;
   const float a = dx * dx + dy * dy + dz * dz;
   const float a_safe = a == 0.f ? 1.f : a;
   const float inv_a = 1.f / a_safe;
-  const float tmin_a = tmin_ * a;
   const int ps = A.p_sph;
   const float* sph = A.sph;
-
-  // ---- sphere fold in key = t*|d|^2 space (sphere.hpp:59-106) -----------
-  float bk = INF;
-  int bidx = 0;
-  float sph_snap[NMED];
-  int start = 0;
-#pragma unroll
-  for (int m = 0; m <= NMED; ++m) {
-    const int static_end = __ldg(&A.sph_segs[2 * m]);
-    const int end = __ldg(&A.sph_segs[2 * m + 1]);
-    for (int j = start; j < static_end; ++j) {
-      const float cox = ld(&sph[0 * ps + j]) - ox;
-      const float coy = ld(&sph[1 * ps + j]) - oy;
-      const float coz = ld(&sph[2 * ps + j]) - oz;
-      const float nb = cox * dx + coy * dy + coz * dz;  // = -b
-      const float cc = cox * cox + coy * coy + coz * coz - ld(&sph[8 * ps + j]);
-      const float disc = nb * nb - a * cc;
-      if (disc > 0.f) {  // strict: a tangent misses
-        const float sq = sqrtf(disc);
-        const float k1 = nb - sq, k2 = nb + sq;
-        const float cand = k1 > tmin_a ? k1 : k2;
-        if (cand > tmin_a && cand < bk) {
-          bk = cand;
-          bidx = j;
-        }
-      }
-    }
-    for (int j = static_end; j < end; ++j) {
-      const float kmov = (tm - ld(&sph[6 * ps + j])) * ld(&sph[7 * ps + j]);
-      const float cox = (ld(&sph[0 * ps + j]) + kmov * ld(&sph[3 * ps + j])) - ox;
-      const float coy = (ld(&sph[1 * ps + j]) + kmov * ld(&sph[4 * ps + j])) - oy;
-      const float coz = (ld(&sph[2 * ps + j]) + kmov * ld(&sph[5 * ps + j])) - oz;
-      const float nb = cox * dx + coy * dy + coz * dz;
-      const float cc = cox * cox + coy * coy + coz * coz - ld(&sph[8 * ps + j]);
-      const float disc = nb * nb - a * cc;
-      if (disc > 0.f) {
-        const float sq = sqrtf(disc);
-        const float k1 = nb - sq, k2 = nb + sq;
-        const float cand = k1 > tmin_a ? k1 : k2;
-        if (cand > tmin_a && cand < bk) {
-          bk = cand;
-          bidx = j;
-        }
-      }
-    }
-    if (m < NMED) sph_snap[m] = bk;
-    start = end;
-  }
   const float s_t = bk * inv_a;
 
   // winner attributes: one direct indexed load (sphere 0 when no hit)
@@ -258,7 +364,7 @@ __device__ __forceinline__ void advance(const WaveArgs& A, float ox, float oy,
   float rt = INF, ru = 0.f, rv = 0.f, rmeta = 0.f, rpar = 0.f, rar = 0.f,
         rag = 0.f, rab = 0.f, rxy = 0.f, rxz = 0.f;
   float rect_snap[NMED];
-  start = 0;
+  int start = 0;
 #pragma unroll
   for (int m = 0; m <= NMED; ++m) {
     const int end = __ldg(&A.rect_segs[m]);
@@ -575,35 +681,55 @@ __device__ __forceinline__ void advance(const WaveArgs& A, float ox, float oy,
   o.t_hit = t_hit;
 }
 
-// One bounce for every lane: fixup, stall, segment, termination, depth
-// exhaustion, next fixup, win record, in-chunk regeneration, work count
-// (bounce_core.wave_step).
-constexpr int BLOCK = 128;  // threads a block, one lane each
+// The inputs of one lane, read in one round of loads.
+struct LaneIn {
+  float f[N_IN];
+  float fix[N_FIX];
+  unsigned int rng;
+  int texel;
+  float srv;
+};
 
+__device__ __forceinline__ void load_lane(const WaveArgs& A, int i,
+                                          LaneIn& L) {
+#pragma unroll
+  for (int p = 0; p < N_IN; ++p) L.f[p] = A.f_in[p][i];
+#pragma unroll
+  for (int p = 0; p < N_FIX; ++p) L.fix[p] = A.fix_in[p][i];
+  L.rng = (unsigned int)A.rng_in[i];
+  L.texel = A.texel[i];
+  L.srv = A.srv[i];
+}
+
+// One bounce for lane i: fixup, stall, segment, termination, depth
+// exhaustion, next fixup, win record, in-chunk regeneration, work count
+// (bounce_core.wave_step).  An advancing lane's sphere fold has run
+// already: (bk, bidx, snap) is its result.
 template <int NMED>
-__global__ void __launch_bounds__(BLOCK) wave_kernel(const WaveArgs A) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= A.n_lanes) return;
-#define IN(p) A.f_in[p][i]
+__device__ __forceinline__ void lane_bounce(const WaveArgs& A, const int i,
+                                            const LaneIn& L,
+                                            const float bk, const int bidx,
+                                            const float (&snap)[NMED]) {
+#define IN(p) L.f[p]
   const float ox = IN(OX), oy = IN(OY), oz = IN(OZ);
   const float dx = IN(DX), dy = IN(DY), dz = IN(DZ), tm = IN(TM);
-  const unsigned int rng = (unsigned int)A.rng_in[i];
+  const unsigned int rng = L.rng;
   float tpx = IN(TPX), tpy = IN(TPY), tpz = IN(TPZ);
   const bool alive_b = IN(ALIVE) > 0.f;
 
   // ---- apply the deferred fixup (texture.hpp:144-150, scale 1/255) -------
-  const int tex = A.texel[i];
+  const int tex = L.texel;
   const float txr = (float)(tex & 0xFF) * INV255_F;
   const float txg = (float)((tex >> 8) & 0xFF) * INV255_F;
   const float txb = (float)((tex >> 16) & 0xFF) * INV255_F;
-  const float fk_in = A.fix_in[FK][i];
+  const float fk_in = L.fix[FK];
   const bool pend = fk_in != 0.f;
-  const bool srvb = pend && (A.srv[i] > 0.f);
+  const bool srvb = pend && (L.srv > 0.f);
   const bool stall = pend && !srvb;
   const bool is_alb_fix = srvb && fk_in == 1.f;
   const bool is_emit_fix = srvb && fk_in == 2.f;
-  const float fwx_in = A.fix_in[FWX][i], fwy_in = A.fix_in[FWY][i],
-              fwz_in = A.fix_in[FWZ][i];
+  const float fwx_in = L.fix[FWX], fwy_in = L.fix[FWY],
+              fwz_in = L.fix[FWZ];
   if (is_alb_fix) {
     tpx = tpx * txr;
     tpy = tpy * txg;
@@ -617,7 +743,8 @@ __global__ void __launch_bounds__(BLOCK) wave_kernel(const WaveArgs A) {
   const bool alive_adv = alive_b && !stall;
   Adv adv = {};  // a lane that does not advance: no hit, atlas index 0
   adv.rng = rng;
-  if (alive_adv) advance<NMED>(A, ox, oy, oz, dx, dy, dz, tm, rng, adv);
+  if (alive_adv)
+    advance<NMED>(A, ox, oy, oz, dx, dy, dz, tm, rng, bk, bidx, snap, adv);
 
   // ---- termination and sky (render.hpp:58-91) ----------------------------
   float rxv = IN(RADX) + (adv.miss ? tpx * adv.sky_x : 0.f);
@@ -651,7 +778,7 @@ __global__ void __launch_bounds__(BLOCK) wave_kernel(const WaveArgs A) {
   const float fk = (alive_n && adv.tk_image) ? 1.f
                    : ((adv.stop_emit && adv.tk_image) ? 2.f : 0.f);
   A.fix_out[FK][i] = stall ? fk_in : fk;
-  A.fix_out[FIDX][i] = stall ? A.fix_in[FIDX][i] : adv.atlas_idx;
+  A.fix_out[FIDX][i] = stall ? L.fix[FIDX] : adv.atlas_idx;
   A.fix_out[FWX][i] = stall ? fwx_in : ew_x;
   A.fix_out[FWY][i] = stall ? fwy_in : ew_y;
   A.fix_out[FWZ][i] = stall ? fwz_in : ew_z;
@@ -733,27 +860,253 @@ __global__ void __launch_bounds__(BLOCK) wave_kernel(const WaveArgs A) {
 #undef IN
 }
 
-template <int NMED>
-cudaError_t launch(const WaveArgs& a, cudaStream_t stream) {
-  const int grid = (a.n_lanes + BLOCK - 1) / BLOCK;
-  wave_kernel<NMED><<<grid, BLOCK, 0, stream>>>(a);
+constexpr int BLOCK = 256;       // threads a block
+constexpr int WARPS = BLOCK / 32;
+constexpr unsigned CHUNK = 32768;  // bytes a bulk copy of the fold table
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// Stage the fold table in shared memory: one thread initialises the
+// mbarrier, arms it with the byte count and issues the bulk copies, which
+// complete on it.
+__device__ __forceinline__ void stage_fold(const WaveArgs& A, float4* tab,
+                                           unsigned bar) {
+  const unsigned bytes = static_cast<unsigned>(A.fold_recs) * 16u;
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(bar)
+               : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                   bar),
+               "r"(bytes)
+               : "memory");
+  const char* src = reinterpret_cast<const char*>(A.fold);
+  for (unsigned off = 0; off < bytes; off += CHUNK) {
+    const unsigned n = bytes - off < CHUNK ? bytes - off : CHUNK;
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+        "[%0], [%1], %2, [%3];" ::"r"(smem_u32(tab) + off),
+        "l"(src + off), "r"(n), "r"(bar)
+        : "memory");
+  }
+}
+
+// Wait for the phase `parity` of the mbarrier to complete.
+__device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
+  unsigned done = 0;
+  do {
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+        "selp.u32 %0, 1, 0, p;\n\t}"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// One bounce for every lane.  Block b takes lanes [b*span, (b+1)*span)
+// and walks over them in tiles of BLOCK / K lanes: one thread a lane
+// decides which lanes advance and packs their rays densely, K threads a
+// lane fold the spheres, one thread a lane does the rest.
+//   K = 1 (wide calls, bound by the fold's issue rate): 4 resident blocks
+// of 64 registers, and a lane's inputs are read after the fold, so they
+// hold no registers during it.
+//   K > 1 (narrow calls, bound by latency): 3 resident blocks of 80
+// registers, and a lane's inputs are read in one round of loads at the
+// start of its tile.
+template <int NMED, int K>
+__global__ void __launch_bounds__(BLOCK, K == 1 ? 4 : 3)
+    wave_kernel(const WaveArgs A, const int span) {
+  constexpr int TILE = BLOCK / K;
+  constexpr bool EARLY = K > 1;  // the lane's inputs read before the fold
+  extern __shared__ __align__(16) float4 s_tab[];  // the fold table
+  __shared__ float s_ray[9][TILE];  // o, d, tm, a, t_min*a of the advancing
+  __shared__ float s_bk[TILE];      // the fold's result, per dense entry
+  __shared__ int s_bidx[TILE];
+  __shared__ float s_snap[NMED][TILE];
+  __shared__ int s_count[2][WARPS];  // by tile parity: no sync to reuse it
+  __shared__ __align__(8) unsigned long long s_bar;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const unsigned bar = smem_u32(&s_bar);
+  // The table is copied at the first tile with an advancing lane, so a
+  // block with none (narrow drain calls) never copies it.
+  bool issued = false;  // the same in every thread of the block
+  bool staged = false;  // this thread has seen the copy complete
+  const int lo = blockIdx.x * span;
+  const int hi = min(lo + span, A.n_lanes);
+  for (int t0 = lo, parity = 0; t0 < hi; t0 += TILE, parity ^= 1) {
+    const int i = t0 + tid;
+    const bool mine = tid < TILE && i < hi;
+
+    // ---- which lanes advance (lane_bounce's alive_adv), packed densely --
+    LaneIn in;
+    const auto plane = [&](int p) { return EARLY ? in.f[p] : A.f_in[p][i]; };
+    bool adv = false;
+    if (mine) {
+      if (EARLY) load_lane(A, i, in);
+      const float fk_in = EARLY ? in.fix[FK] : A.fix_in[FK][i];
+      const bool stall = fk_in != 0.f && !((EARLY ? in.srv : A.srv[i]) > 0.f);
+      adv = plane(ALIVE) > 0.f && !stall;
+    }
+    const unsigned ball = __ballot_sync(0xffffffffu, adv);
+    if (lane == 0) s_count[parity][warp] = __popc(ball);
+    __syncthreads();
+    int before = 0, n_adv = 0;
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) {
+      const int c = s_count[parity][w];
+      before += w < warp ? c : 0;
+      n_adv += c;
+    }
+    int pos = -1;
+    if (n_adv > 0) {  // the same in every thread of the block
+      if (!issued) {
+        if (tid == 0) stage_fold(A, s_tab, bar);
+        issued = true;
+      }
+      if (adv) {
+        pos = before + __popc(ball & ((1u << lane) - 1u));
+        const float dx = plane(DX), dy = plane(DY), dz = plane(DZ);
+        const float a = dx * dx + dy * dy + dz * dz;
+        s_ray[0][pos] = plane(OX);
+        s_ray[1][pos] = plane(OY);
+        s_ray[2][pos] = plane(OZ);
+        s_ray[3][pos] = dx;
+        s_ray[4][pos] = dy;
+        s_ray[5][pos] = dz;
+        s_ray[6][pos] = plane(TM);
+        s_ray[7][pos] = a;
+        s_ray[8][pos] = A.t_min * a;
+      }
+      __syncthreads();
+
+      // ---- the sphere fold, K threads a dense entry ---------------------
+      if (warp * (32 / K) < n_adv) {  // the warp holds a live entry
+        if (!staged) {
+          mbar_wait(bar, 0);
+          staged = true;
+        }
+        const int e = tid / K, sub = tid % K;
+        float bk = INF;
+        int bidx = 0;
+        float snap[NMED];
+#pragma unroll
+        for (int m = 0; m < NMED; ++m) snap[m] = INF;
+        if (e < n_adv) {
+          const FoldRay r{s_ray[0][e], s_ray[1][e], s_ray[2][e],
+                          s_ray[3][e], s_ray[4][e], s_ray[5][e],
+                          s_ray[6][e], s_ray[7][e], s_ray[8][e]};
+          fold_share<NMED, K>(s_tab, A.sph_segs, sub, r, bk, bidx, snap);
+        }
+        if (K > 1) reduce_split<NMED, K>(bk, bidx, snap);
+        if (e < n_adv && sub == 0) {
+          s_bk[e] = bk;
+          s_bidx[e] = bidx;
+#pragma unroll
+          for (int m = 0; m < NMED; ++m) s_snap[m][e] = snap[m];
+        }
+      }
+      __syncthreads();
+    }
+
+    // ---- the rest, one thread a lane ------------------------------------
+    if (mine) {
+      float bk = INF, snap[NMED];
+      int bidx = 0;
+#pragma unroll
+      for (int m = 0; m < NMED; ++m) snap[m] = INF;
+      if (pos >= 0) {
+        bk = s_bk[pos];
+        bidx = s_bidx[pos];
+#pragma unroll
+        for (int m = 0; m < NMED; ++m) snap[m] = s_snap[m][pos];
+      }
+      if (!EARLY) load_lane(A, i, in);
+      lane_bounce<NMED>(A, i, in, bk, bidx, snap);
+    }
+  }
+  // the copy must land before the block's shared memory is released
+  if (issued && !staged) mbar_wait(bar, 0);
+}
+
+// Launch one bounce, or with `per_sm` set only report the resident blocks
+// an SM for these arguments.
+template <int NMED, int K>
+cudaError_t run(const WaveArgs& a, cudaStream_t stream, int* per_sm) {
+  const auto kern = wave_kernel<NMED, K>;
+  const int smem = a.fold_recs * 16;
+  cudaError_t err;
+  if (smem > 48 * 1024 &&
+      (err = cudaFuncSetAttribute(
+           kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem)) !=
+          cudaSuccess)
+    return err;
+  int dev = 0, sms = 0, blocks = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    dev)) != cudaSuccess)
+    return err;
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &blocks, kern, BLOCK, smem)) != cudaSuccess)
+    return err;
+  if (per_sm != nullptr) {
+    *per_sm = blocks;
+    return cudaSuccess;
+  }
+  if (blocks < 1) return cudaErrorInvalidConfiguration;
+  // Every resident block takes an equal span of lanes, a multiple of a
+  // warp's lanes (or of the tile, if smaller); its last tile may be part
+  // full.  So no block is left with a whole extra tile at the end.
+  const int tile = BLOCK / K, quantum = tile < 32 ? tile : 32;
+  const int n_tiles = (a.n_lanes + tile - 1) / tile;
+  const int grid0 = n_tiles < sms * blocks ? n_tiles : sms * blocks;
+  const int per = (a.n_lanes + grid0 - 1) / grid0;
+  const int span = (per + quantum - 1) / quantum * quantum;
+  const int grid = (a.n_lanes + span - 1) / span;
+  kern<<<grid, BLOCK, smem, stream>>>(a, span);
   return cudaGetLastError();
+}
+
+template <int NMED>
+cudaError_t run_split(const WaveArgs& a, cudaStream_t stream, int* per_sm) {
+  switch (a.split) {
+    case 1: return run<NMED, 1>(a, stream, per_sm);
+    case 2: return run<NMED, 2>(a, stream, per_sm);
+    case 4: return run<NMED, 4>(a, stream, per_sm);
+    case 8: return run<NMED, 8>(a, stream, per_sm);
+    case 16: return run<NMED, 16>(a, stream, per_sm);
+    case 32: return run<NMED, 32>(a, stream, per_sm);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+cudaError_t run_any(const WaveArgs& a, cudaStream_t stream, int* per_sm) {
+  switch (a.n_med) {
+    case 1: return run_split<1>(a, stream, per_sm);
+    case 2: return run_split<2>(a, stream, per_sm);
+    case 3: return run_split<3>(a, stream, per_sm);
+    case 4: return run_split<4>(a, stream, per_sm);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
 // Launch one bounce on `stream`; returns cudaGetLastError() after the
-// launch (0 = launched).  Media counts 1..4 are instantiated.
+// launch (0 = launched).  Media counts 1..4 and K = 1, 2, 4, ..., 32 are
+// instantiated.
 extern "C" int wave_bounce_launch(const WaveArgs* a, void* stream) {
   if (a->n_lanes <= 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (a->n_med) {
-    case 1: return (int)launch<1>(*a, s);
-    case 2: return (int)launch<2>(*a, s);
-    case 3: return (int)launch<3>(*a, s);
-    case 4: return (int)launch<4>(*a, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return (int)run_any(*a, static_cast<cudaStream_t>(stream), nullptr);
+}
+
+// The resident blocks an SM of the instantiation `a` selects (n_med,
+// split) with its fold table, in *blocks; returns the CUDA error code.
+extern "C" int wave_bounce_occupancy(const WaveArgs* a, int* blocks) {
+  return (int)run_any(*a, nullptr, blocks);
 }
 
 extern "C" const char* wave_bounce_error_string(int err) {

@@ -4,10 +4,11 @@
 numpy seed, with every case the kernel's policy branches on: live and
 dead lanes, lanes that regenerate within their chunk, pending ALBEDO and
 EMIT image-texture fixups, and lanes whose pending fixup the texel service
-does not cover (they stall).  `agreement` compares two bounce outputs
-plane by plane.  The tests use both against the reference package on the
-CPU; `chip_smoke.py` uses them for the kernel against its plain version
-on the card.
+does not cover (they stall).  `tie_scene` is a scene made for equal
+sphere keys across media segments.  `agreement` compares two bounce
+outputs plane by plane.  The tests use them against the reference
+package on the CPU; `chip_smoke.py` and the card tests use them for the
+kernel against its plain version on the card.
 """
 from __future__ import annotations
 
@@ -17,8 +18,11 @@ import numpy as np
 import torch
 
 from ..core.camera import Camera
+from ..core.device import resolve_device
 from ..core.rng import MASK32, seed_perf
 from ..engine.integrator import camera_rays
+from ..scene.builder import SceneBuilder
+from ..scene.types import Scene
 from . import wave_bounce as WB
 
 INT_PLANES = ("rng", "win", "alive", "s", "bnc", "wrk", "fix_kind")
@@ -90,6 +94,42 @@ def probe_state(tables: WB.SceneTables, cam: Camera, width: int,
                      send=w(dead, st.s, st.send))
     texel, srv = service(fix)
     return st, fix, texel, srv
+
+
+def tie_scene(aspect: float, device="cuda") -> Tuple[Scene, Camera]:
+    """A scene where the sphere fold meets many equal keys.  Each sphere
+    of a small cluster is added several times with the same geometry and
+    another material, so the lowest table index must win a tie, and the
+    output shows which one did.  Two smoke media split the spheres into
+    three media segments: segment 0 has static and moving copies,
+    segment 1 moving copies only, segment 2 static copies (and the
+    padding).  Equal copies thus sit on both sides of each medium."""
+    sb = SceneBuilder()
+    sb.add_sphere((0.0, -1000.0, 0.0), 1000.0, sb.lambertian((0.5, 0.5, 0.5)))
+    mats = [sb.lambertian((0.8, 0.3, 0.3)), sb.metal((0.7, 0.7, 0.9), 0.1),
+            sb.lambertian((0.3, 0.8, 0.3)), sb.dielectric(1.5, (1, 1, 1)),
+            sb.lambertian((0.3, 0.3, 0.8))]
+    cluster = [((x, 0.5, z), 0.5) for x in (-1.2, 0.0, 1.2)
+               for z in (-1.2, 0.0, 1.2)]
+    movers = [((x, 0.4, z), (x, 0.8, z), 0.4) for x, z in ((-0.6, 0.6),
+                                                           (0.6, -0.6))]
+    for c, r in cluster:
+        sb.add_sphere(c, r, mats[0])
+        sb.add_sphere(c, r, mats[1])
+    for _ in range(2):
+        for c0, c1, r in movers:
+            sb.add_moving_sphere(c0, c1, 0.0, 1.0, r, mats[2])
+    sb.add_constant_medium(("sphere", (0.0, 1.0, 0.0), 2.5), 0.05,
+                           (0.9, 0.9, 0.9))
+    for c0, c1, r in movers:
+        sb.add_moving_sphere(c0, c1, 0.0, 1.0, r, mats[3])
+    sb.add_constant_medium(("box", (-2.0, 0.0, -2.0), (2.0, 1.5, 2.0)), 0.02,
+                           (0.8, 0.8, 0.6))
+    for c, r in cluster:
+        sb.add_sphere(c, r, mats[4])
+    cam = Camera.create((0.0, 3.0, 6.0), (0.0, 0.5, 0.0), (0.0, 1.0, 0.0),
+                        35.0, aspect, 0.0, 6.5, 0.0, 1.0)
+    return sb.build(device=resolve_device(device)), cam
 
 
 def planes(out: WB.WaveOut) -> Dict[str, torch.Tensor]:

@@ -10,7 +10,9 @@ State is kept in the reference's layout at this interface: (rows, 128)
 planes, float32 except `rng` (int64 holding a 32-bit value); masks are
 float 0/1 and pix/s/send/strd exact small integers in float32.  The
 packed tables keep the reference's row layouts: sph 15 rows, rect 15,
-tri 17, med 17, spec 11 x 16, cam 23.
+tri 17, med 17, spec 11 x 16, cam 23.  One more table, `fold`, holds the
+sphere fold's columns again as 16-byte records (`fold_table`), the form
+the kernel stages in shared memory.
 """
 from __future__ import annotations
 
@@ -20,6 +22,7 @@ from typing import NamedTuple, Optional, Union
 import torch
 
 from ..core.camera import Camera
+from ..core.device import resolve_device
 from ..scene import types as T
 from . import bounce_core
 from .bounce_core import (FIX_ALBEDO, FIX_EMIT, FIX_NONE, LANE, M_MTYPE,
@@ -31,6 +34,8 @@ __all__ = ["FIX_ALBEDO", "FIX_EMIT", "FIX_NONE", "LANE", "SceneTables",
 
 DEF_TILE_ROWS = 64     # lane-count quantum on the card: rows % 64 == 0
 MAX_MED = 4            # media the CUDA kernel is instantiated for
+SPLITS = (1, 2, 4, 8, 16, 32)   # threads a lane's sphere fold can take
+MAX_FOLD_BYTES = 192 * 1024     # the fold table is staged in shared memory
 
 
 class SceneTables(NamedTuple):
@@ -44,6 +49,7 @@ class SceneTables(NamedTuple):
     spec: torch.Tensor       # (11, MAX_SPECIAL_TEX) f32 special textures
     cam: torch.Tensor        # (23,) f32 camera + frame size (pack_camera)
     seed: int                # base seed, 32-bit
+    fold: torch.Tensor       # (Ps + 2 * moving, 4) f32 (fold_table)
 
 
 def _meta(scan, texref, texkind, mtype):
@@ -84,6 +90,24 @@ def _seg_key(scan, med_scans):
 
 def _nonzero_inv(x):
     return torch.where(x == 0.0, 1.0, 1.0 / torch.where(x == 0.0, 1.0, x))
+
+
+def fold_table(sph: torch.Tensor, sph_segs: torch.Tensor) -> torch.Tensor:
+    """The sphere fold's columns as 16-byte records in table order: a
+    static sphere is one record (cx, cy, cz, r^2), a moving one three,
+    (cx, cy, cz, r^2), (vx, vy, vz, t0), (inv_dt, 0, 0, 0), with c the
+    center at t0 and v the motion over the shutter (sph rows 0-2, 8, 3-7).
+    Returns an (n_records, 4) f32 tensor on sph's device."""
+    recs, start = [], 0
+    for static_end, end in sph_segs.tolist():
+        recs.append(sph[[0, 1, 2, 8], start:static_end].T)
+        mv = sph[:, static_end:end]
+        z = torch.zeros_like(mv[7])
+        recs.append(torch.stack([mv[0], mv[1], mv[2], mv[8], mv[3], mv[4],
+                                 mv[5], mv[6], mv[7], z, z, z], 1)
+                    .reshape(-1, 4))
+        start = end
+    return torch.cat(recs).contiguous()
 
 
 def pack_scene(scene: T.Scene,
@@ -194,7 +218,8 @@ def pack_scene(scene: T.Scene,
     return SceneTables(sph=to(sph), sph_segs=to(sph_segs), rect=to(rect),
                        rect_segs=to(rect_segs), tri=to(tri),
                        tri_segs=to(tri_segs), med=to(med), spec=to(spec),
-                       cam=torch.zeros(23, dtype=f32, device=dev), seed=0)
+                       cam=torch.zeros(23, dtype=f32, device=dev), seed=0,
+                       fold=to(fold_table(sph, sph_segs)))
 
 
 def _cpu(node):
@@ -204,15 +229,15 @@ def _cpu(node):
 
 
 def pack_camera(cam: Camera, width: int, height: int,
-                device: Union[str, torch.device] = "cpu") -> torch.Tensor:
-    """The camera and frame size as the kernel's 23 floats."""
+                device: Union[str, torch.device] = "cuda") -> torch.Tensor:
+    """The camera and frame size as the kernel's 23 floats, on `device`."""
     vals = [*cam.origin, *cam.lower_left_corner, *cam.horizontal,
             *cam.vertical, *cam.u, *cam.v, cam.lens_radius, cam.time0,
             cam.time1]
     out = torch.stack([v.to(torch.float32).reshape(()) for v in vals]
                       + [torch.tensor(float(width)),
                          torch.tensor(float(height))])
-    return out.to(device)
+    return out.to(resolve_device(device))
 
 
 # ---------------------------------------------------------------------------
@@ -296,7 +321,26 @@ class _Args(ctypes.Structure):
                    ("p_rect", ctypes.c_int), ("p_tri", ctypes.c_int),
                    ("n_med", ctypes.c_int), ("max_depth", ctypes.c_int),
                    ("attenuate", ctypes.c_int), ("seed", ctypes.c_uint),
-                   ("t_min", ctypes.c_float)])
+                   ("t_min", ctypes.c_float), ("fold", _P),
+                   ("fold_recs", ctypes.c_int), ("split", ctypes.c_int)])
+
+
+FILL_THREADS = 1 << 16  # fold threads that keep the card busy
+MAX_AUTO_SPLIT = 8      # past it, the per-lane rest of a tile idles
+NARROW_SPLIT = 4        # for calls no K up to MAX_AUTO_SPLIT fills
+
+
+def split_for(n_lanes: int) -> int:
+    """K, the threads each lane's sphere fold is split across: the least
+    of SPLITS up to MAX_AUTO_SPLIT with lanes x K >= FILL_THREADS, else
+    NARROW_SPLIT.  A tile holds 256 / K lanes and the per-lane rest of the
+    segment runs one thread a lane, so a large K leaves most of a block
+    idle there.  The rule follows chip_smoke.py's timing of every K at the
+    paths' widths (PERF.md)."""
+    for k in SPLITS:
+        if k <= MAX_AUTO_SPLIT and n_lanes * k >= FILL_THREADS:
+            return k
+    return NARROW_SPLIT
 
 
 def _check(t: torch.Tensor, dtype, shape, dev, what: str) -> int:
@@ -316,12 +360,29 @@ def _lib() -> ctypes.CDLL:
         lib.wave_bounce_launch.restype = ctypes.c_int
         lib.wave_bounce_error_string.argtypes = [ctypes.c_int]
         lib.wave_bounce_error_string.restype = ctypes.c_char_p
+        lib.wave_bounce_occupancy.argtypes = [_P, _P]
+        lib.wave_bounce_occupancy.restype = ctypes.c_int
     return lib
+
+
+def occupancy(n_med: int, split: int, fold_recs: int) -> int:
+    """Resident blocks an SM of the kernel instantiated for `n_med` media
+    at split K with a fold table of `fold_recs` records, as the CUDA
+    runtime reports it."""
+    lib = _lib()
+    a = _Args()
+    a.n_med, a.split, a.fold_recs = n_med, split, fold_recs
+    blocks = ctypes.c_int(0)
+    err = lib.wave_bounce_occupancy(ctypes.byref(a), ctypes.byref(blocks))
+    if err != 0:
+        raise RuntimeError(f"wave_bounce: occupancy query failed: "
+                           f"{lib.wave_bounce_error_string(err).decode()}")
+    return blocks.value
 
 
 def _launch(tables: SceneTables, st: WaveState, fix: FixState,
             texel: torch.Tensor, srv: torch.Tensor, t_min: float,
-            max_depth: int, attenuate: bool):
+            max_depth: int, attenuate: bool, split: Optional[int] = None):
     lib = _lib()
     dev = st.ox.device
     sh = tuple(st.ox.shape)
@@ -341,6 +402,16 @@ def _launch(tables: SceneTables, st: WaveState, fix: FixState,
     a.tri_segs = _check(tables.tri_segs, torch.int32, (n_med + 1,), dev,
                         "tri_segs")
     a.spec = _check(tables.spec, f32, (11, MAX_SPECIAL_TEX), dev, "spec")
+    n_rec = tables.fold.shape[0]
+    if n_rec * 16 > MAX_FOLD_BYTES:
+        raise ValueError(f"wave_bounce: the sphere fold table takes "
+                         f"{n_rec * 16} bytes, more than the "
+                         f"{MAX_FOLD_BYTES} the kernel stages")
+    a.fold = _check(tables.fold, f32, (n_rec, 4), dev, "fold")
+    if a.fold % 16:
+        raise ValueError("wave_bounce: the fold table must be 16-byte "
+                         "aligned for its bulk copy")
+    a.fold_recs = n_rec
     a.cam = _check(tables.cam, f32, (23,), dev, "cam")
     for i, name in enumerate(F_RW + F_RO):
         a.f_in[i] = _check(getattr(st, name), f32, sh, dev, name)
@@ -361,6 +432,10 @@ def _launch(tables: SceneTables, st: WaveState, fix: FixState,
     a.rng_out, a.win, a.t_hit = (rng_out.data_ptr(), win.data_ptr(),
                                  t_hit.data_ptr())
     a.n_lanes = st.ox.numel()
+    a.split = split_for(a.n_lanes) if split is None else split
+    if a.split not in SPLITS:
+        raise ValueError(f"wave_bounce: split {a.split} is not one of "
+                         f"{SPLITS}")
     a.p_sph, a.p_rect, a.p_tri = (tables.sph.shape[1], tables.rect.shape[1],
                                   tables.tri.shape[1])
     a.n_med, a.max_depth, a.attenuate = n_med, int(max_depth), int(attenuate)
@@ -378,7 +453,7 @@ def _launch(tables: SceneTables, st: WaveState, fix: FixState,
     wave_bounce.launches += 1
     if events is not None:
         end.record(stream)
-        events.append((start, end))
+        events.append((a.n_lanes, start, end))
     rw = dict(zip(F_RW, f_out), rng=rng_out)
     return (tuple(rw[n] for n in WaveState._fields[:21]) + tuple(fix_out)
             + (win, t_hit))
@@ -407,7 +482,8 @@ def wave_bounce(tables: SceneTables, st: WaveState,
                 texel: Optional[torch.Tensor] = None,
                 srv: Optional[torch.Tensor] = None, *, t_min: float,
                 max_depth: int, attenuate: bool,
-                tile_rows: int = DEF_TILE_ROWS) -> WaveOut:
+                tile_rows: int = DEF_TILE_ROWS,
+                _split: Optional[int] = None) -> WaveOut:
     """One bounce for every lane.  The lane count is rows*128 with rows a
     multiple of tile_rows.  `fix` is the previous call's pending fixups
     (None for the first bounce), `texel` the int32 atlas texels the
@@ -415,7 +491,8 @@ def wave_bounce(tables: SceneTables, st: WaveState,
     the 0/1 mask of fixups it covered; lanes with an uncovered pending
     fixup stall this call.  Launches the CUDA kernel for CUDA tensors
     (counted in `wave_bounce.launches`) and runs the plain version for CPU
-    tensors."""
+    tensors.  `_split` forces K (see `split_for`) for the kernel's
+    tests."""
     rows = st.ox.shape[0]
     if rows % tile_rows:
         raise ValueError(f"rows {rows} is not a multiple of tile_rows "
@@ -428,7 +505,7 @@ def wave_bounce(tables: SceneTables, st: WaveState,
         srv = torch.ones((rows, LANE), dtype=torch.float32, device=dev)
     if dev.type == "cuda":
         return _wave_out(st, _launch(tables, st, fix, texel, srv, t_min,
-                                     max_depth, attenuate))
+                                     max_depth, attenuate, split=_split))
     if dev.type == "cpu":
         return wave_bounce_plain(tables, st, fix, texel, srv, t_min=t_min,
                                  max_depth=max_depth, attenuate=attenuate)
@@ -436,5 +513,5 @@ def wave_bounce(tables: SceneTables, st: WaveState,
 
 
 wave_bounce.launches = 0   # kernel launches (CUDA tensors only)
-wave_bounce.events = None  # a list to collect (start, end) CUDA events of
-#                            each launch, for timing; None = off
+wave_bounce.events = None  # a list to collect (lanes, start, end), the CUDA
+#                            events around each launch; None = off

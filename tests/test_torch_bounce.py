@@ -44,8 +44,8 @@ def case():
     js, jc = build_final_scene(W / H)
     scene = scene_from_numpy(jax.tree_util.tree_map(np.asarray, js), "cpu")
     cam = camera_from_numpy(jax.tree_util.tree_map(np.asarray, jc))
-    tables = WB.pack_scene(scene)._replace(cam=WB.pack_camera(cam, W, H),
-                                           seed=SEED)
+    tables = WB.pack_scene(scene)._replace(
+        cam=WB.pack_camera(cam, W, H, device="cpu"), seed=SEED)
     atlas, _ = _pack_atlas_flat(scene.textures.atlas)
     st, fix, texel, srv = probe.probe_state(
         tables, cam, W, H, atlas, rows=8, bounces=3, max_depth=MAX_DEPTH,

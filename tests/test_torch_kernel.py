@@ -7,8 +7,11 @@ against its plain version on the same final-scene probe state.  Both round
 every float op alike (the kernel is built with -fmad=false, sin/cos/log
 are float64 rounded once in both), so the bounds are tight: integer planes
 equal on >= 99.5% of lanes, float planes within 4 ulp on >= 99.9% of the
-lanes whose win agrees.  The nearest-sphere spike (K2) is bit-equal to
-its plain version on the card.
+lanes whose win agrees.  Forced to each split of its sphere fold (K
+threads a lane), the kernel is bit-equal to the plain version on every
+lane and plane, on the final scene and on `probe.tie_scene`, whose equal
+sphere keys must go to the lowest index.  The nearest-sphere spike (K2)
+is bit-equal to its plain version on the card.
 """
 import pytest
 import torch
@@ -23,8 +26,8 @@ W, H = 800, 600
 KW = dict(t_min=1e-3, max_depth=4, attenuate=False)
 
 
-def _case(device, rows):
-    scene, cam = build_final_scene(W / H, device=device)
+def _case(device, rows, build=build_final_scene):
+    scene, cam = build(W / H, device=device)
     tables = WB.pack_scene(scene)._replace(
         cam=WB.pack_camera(cam, W, H, device), seed=11)
     atlas, _ = _pack_atlas_flat(scene.textures.atlas)
@@ -72,6 +75,22 @@ def test_kernel_matches_plain_on_card(cuda_device):
         assert agree[k] >= 0.995, agree
     for k in probe.FLOAT_PLANES + probe.FIX_PLANES:
         assert agree[k] >= 0.999, agree
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", WB.SPLITS)
+@pytest.mark.parametrize("scene", ["final", "ties"])
+def test_every_split_is_bit_equal_on_card(cuda_device, scene, k):
+    build = {"final": build_final_scene, "ties": probe.tie_scene}[scene]
+    tables, st, fix, texel, srv = _case(cuda_device, rows=16, build=build)
+    kern = WB.wave_bounce(tables, st, fix, texel, srv, tile_rows=8,
+                          _split=k, **KW)
+    torch.cuda.synchronize()
+    plain = WB.wave_bounce_plain(tables, st, fix, texel, srv, **KW)
+    agree = probe.agreement(kern, plain)
+    assert all(agree[p] == 1.0 for p in probe.INT_PLANES), agree
+    assert all(agree[p + "_max_ulp"] == 0.0
+               for p in probe.FLOAT_PLANES + probe.FIX_PLANES), agree
 
 
 @pytest.mark.cuda

@@ -71,7 +71,8 @@ def test_packed_tables_bit_equal(name):
         _assert_tree_equal(getattr(jt, field), getattr(tt, field), field)
     _assert_tree_equal(JWB.pack_camera(jc, preset.width, preset.height),
                        TWB.pack_camera(camera_from_numpy(_np(jc)),
-                                       preset.width, preset.height), "cam")
+                                       preset.width, preset.height,
+                                       device="cpu"), "cam")
     jflat, jn = JWQ._pack_atlas_flat(js.textures.atlas)
     tflat, tn = TWQ._pack_atlas_flat(ts.textures.atlas)
     assert jn == tn
