@@ -5,12 +5,18 @@
     python3 chip_smoke.py --old-kernel OLD/wave_bounce.cu
         # also times an earlier K1 source (same C interface) beside the
         # current one in phase 10
+    python3 chip_smoke.py --old-pmat OLD/spike_pmat.cu
+        # also times an earlier K2 source whose launch takes no K
+        # beside the current one in phase 6
 
 Phases, each of which raises on failure (exit code != 0):
 1. device: CUDA must be available; prints the GPU name and power limit;
 2. build: compiles every kernel from path_tracer_tpu_torch/ops/csrc with
    nvcc, one process per source, all at once; prints ptxas's registers,
-   spills and shared memory for each kernel instantiation;
+   spills and shared memory for each kernel instantiation, and for each
+   K2 instantiation what its SASS holds (instructions, branches, the
+   branches on the disc test, the sqrt's reciprocal roots and slow-path
+   calls);
 3. kernel against plain: one `wave_bounce` call through the CUDA kernel
    and through its plain PyTorch version, both on the card, on a final-
    scene state at full width (800x600: 483,328 lanes) a few bounces in,
@@ -24,10 +30,14 @@ Phases, each of which raises on failure (exit code != 0):
    fields with "backend": "cuda", checks the kernel's launch count equals
    the bounce iterations, prints the CUDA events around each launch
    grouped by lane count, and writes the frame to build/ (git-ignored);
-6. the nearest-sphere spike (K2) against its plain version at the
-   reference tool's largest call (4096 x 128 = 524,288 rays, P = 512):
-   t and meta bit-equal, the times and the bound; then its entry point
-   `run(4096)` with the launch count read around it;
+6. the nearest-sphere spike (K2) at the reference tool's three calls,
+   64, 1024 and 4096 rows of 128 rays (P = 512): at each, the plain
+   version's time, the kernel forced to every K (bit-equal to the plain
+   version on t and meta, and timed), then in turns the kernel at the
+   wrapper's K, the earlier kernel given by --old-pmat and the
+   kernel again; the ops the inputs need (`spike_pmat.work`) beside
+   every op charged to every pair, and the bound from each; then
+   its entry point `run` at each size, the launch count read around it;
 7. gradient route, small: the final scene at 32x24, 2 spp, depth 8,
    recorded and differentiated with device="cuda" (the kernel) and
    device="cpu" (the plain version): records equal, per-leaf gradients
@@ -58,7 +68,8 @@ in them.  Then the kernel table as one JSON line: K1 once for the forward
 path (phase 5's launches, the full-width time) and once for the gradient
 route (phase 8's launches, phase 9's as `launches_train`, the stage
 times weighted by the stages' launches), each with its per-width times,
-and K2; the card's name and power limit; and last
+and K2 (the three `run` calls' launches, the 4096-row times, its
+per-size times); the card's name and power limit; and last
 {"ok": true, "device": {...}}.  Nothing here imports JAX.
 """
 from __future__ import annotations
@@ -77,7 +88,7 @@ import torch
 W, H, DEPTH, SPP = 800, 600, 50, 80
 GW, GH, GSPP = 400, 300, 4        # tools/bench_grad.py's gradient setting
 TRAIN_LR = 0.05                   # the reference's default SGD rate
-PMAT_ROWS = 4096                  # tools/spike_pmat.py's largest call
+PMAT_ROWS = (64, 1024, 4096)      # tools/spike_pmat.py's run() calls
 DRAIN_ROWS = (896, 192, 64)       # render_wq's drain stages at 800x600
 HBM_BYTES_S = 3.35e12     # H100 SXM HBM3 rate (NVIDIA data sheet)
 FP32_OPS_S = 67e12        # H100 SXM FP32 peak outside the tensor cores
@@ -123,9 +134,51 @@ def ptxas_report(text: str) -> list:
             sm = re.search(r"(\d+) bytes smem", line)
             fn["smem"] = int(sm.group(1)) if sm else 0
     for r in rows:
-        k = re.search(r"wave_kernelILi(\d+)ELi(\d+)E", r["name"])
-        if k:
-            r["name"] = f"wave_kernel<NMED={k.group(1)}, K={k.group(2)}>"
+        r["name"] = kernel_name(r["name"])
+    return rows
+
+
+def kernel_name(mangled: str) -> str:
+    """A kernel instantiation's name with its template arguments."""
+    k = re.search(r"wave_kernelILi(\d+)ELi(\d+)E", mangled)
+    if k:
+        return f"wave_kernel<NMED={k.group(1)}, K={k.group(2)}>"
+    k = re.search(r"pmat_kernelILi(\d+)E", mangled)
+    if k:
+        return f"pmat_kernel<K={k.group(1)}>"
+    return mangled
+
+
+def sass_report(lib) -> list:
+    """(kernel, instructions, branches, branches on a float test against
+    zero, MUFU.RSQ, CALL) for each function in a built library's SASS
+    (cuobjdump), or [] without cuobjdump.  A branch on the disc test is
+    an `FSETP.GT ... RZ` whose predicate a later `@!P BRA` reads before
+    anything writes it again."""
+    from path_tracer_tpu_torch.ops import build
+    tool = os.path.join(os.path.dirname(build.nvcc()), "cuobjdump")
+    if not os.path.isfile(tool):
+        return []
+    text = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+    rows = []
+    for part in text.split("Function : ")[1:]:
+        ins = re.findall(r"/\*[0-9a-f]{4,}\*/\s+([^;]*);", part)
+        disc = 0
+        for j, x in enumerate(ins):
+            m = re.match(r"FSETP\.GT\.AND (P\d), PT, R\d+, RZ, PT", x)
+            for y in ins[j + 1:] if m else ():
+                if y.startswith(f"@!{m.group(1)} BRA"):
+                    disc += 1
+                if re.match(rf"(@!?P\d )?\S+ {m.group(1)},", y):
+                    break
+        rows.append(dict(
+            name=kernel_name(part.split()[0]), instructions=len(ins),
+            branches=sum(1 for x in ins if re.search(r"\bBRA\b", x)),
+            disc_branches=disc,
+            rsq=sum(1 for x in ins if "MUFU.RSQ" in x),
+            calls=sum(1 for x in ins if x.startswith("CALL")
+                      or " CALL" in x)))
     return rows
 
 
@@ -190,7 +243,7 @@ def time_host(fn, reps: int) -> float:
     return (time.perf_counter() - t0) / reps
 
 
-def main(old_kernel=None) -> list:
+def main(old_kernel=None, old_pmat=None) -> list:
     # ---- 1. device -----------------------------------------------------
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
@@ -218,6 +271,11 @@ def main(old_kernel=None) -> list:
             log(f"    {name}: {r['name']}: {r.get('regs')} registers, spill "
                 f"stores {r['spill_st']} B, loads {r['spill_ld']} B, "
                 f"{r.get('smem')} B static shared memory")
+    for r in sass_report(build.lib_path("spike_pmat")):
+        log(f"    spike_pmat SASS: {r['name']}: {r['instructions']} "
+            f"instructions, {r['branches']} branches of which "
+            f"{r['disc_branches']} on the disc test, {r['rsq']} MUFU.RSQ, "
+            f"{r['calls']} calls (the sqrt's slow path)")
 
     # ---- 3. kernel against plain at full width ---------------------------
     scene, cam = build_final_scene(W / H, device=dev)
@@ -326,7 +384,7 @@ def main(old_kernel=None) -> list:
         f"build/chip_smoke_final.png")
     del scene, cam, img
 
-    pmat_row = phase_pmat(dev)
+    pmat_row = phase_pmat(dev, old_pmat)
     phase_grad_small()
     grad_row, stage_cases, stage_launches = phase_grad_full(dev)
     grad_row["launches_train"] = phase_train(dev)
@@ -339,43 +397,119 @@ def main(old_kernel=None) -> list:
     return [kernel_row, grad_row, pmat_row]
 
 
-def phase_pmat(dev) -> dict:
-    """6. K2 against its plain version at the tool's largest call, then its
-    entry point `run`."""
+def load_old_pmat(path: str):
+    """An earlier csrc/spike_pmat.cu whose C launch takes no K (the
+    first CUDA version's interface), built with the current flags and
+    loaded."""
+    from path_tracer_tpu_torch.ops import build
+    out = build.BUILD_DIR / "libspike_pmat_old.so"
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    subprocess.run([build.nvcc(), *build.NVCC_FLAGS, "-o", str(out), path],
+                   check=True, capture_output=True)
+    lib = ctypes.CDLL(str(out))
+    lib.spike_pmat_launch.argtypes = [ctypes.c_void_p] * 11 + [
+        ctypes.c_int, ctypes.c_void_p]
+    lib.spike_pmat_launch.restype = ctypes.c_int
+    return lib
+
+
+def phase_pmat(dev, old_pmat=None) -> dict:
+    """6. K2 at each of the reference tool's calls: the plain version,
+    every K, and in turns the wrapper's K, the earlier kernel (if given)
+    and the wrapper's again; then the entry point `run` at each size.
+    Returns K2's kernels-line row."""
     from path_tracer_tpu_torch.ops import spike_pmat as SP
-    args = SP.make_inputs(PMAT_ROWS, seed=0, device=dev)
-    t, meta = SP.spike_pmat(*args)
-    torch.cuda.synchronize()
-    pt, pm = SP.spike_pmat_plain(*args)
-    n = t.numel()
-    bad_t = int((t.view(torch.int32) != pt.view(torch.int32)).sum())
-    bad_m = int((meta != pm).sum())
-    fin = torch.isfinite(pt)
-    max_abs = float(torch.where(fin, (t - pt).abs(), 0.0).max())
-    log(f"[6] spike_pmat kernel vs plain, {n} rays: t differs on {bad_t}, "
-        f"meta on {bad_m}; max |dt| {max_abs}; hits {float(fin.float().mean()):.4f}")
-    if bad_t or bad_m:
-        raise AssertionError("spike_pmat kernel disagrees with its plain "
-                             "version")
-    ms = cuda_ms(lambda: SP.spike_pmat(*args), 20)
-    plain_ms = cuda_ms(lambda: SP.spike_pmat_plain(*args), 2)
-    b = SP.bound_ms(n, FP32_OPS_S, HBM_BYTES_S)
-    log(f"[6] spike_pmat {ms:.4f} ms/launch ({n / ms / 1e3:.1f} Mray/s), "
-        f"plain {plain_ms:.3f} ms, bound {b['bound_ms']:.4f} ms "
-        f"({b['ops']} ops -> {b['ops_ms']:.4f} ms, {b['bytes']} bytes -> "
-        f"{b['bytes_ms']:.4f} ms)")
-    SP.spike_pmat.launches = 0
-    out = SP.run(PMAT_ROWS, device=dev)
-    launches = SP.spike_pmat.launches
-    log(f"[6] run({PMAT_ROWS}): {json.dumps(out)}; launches {launches}")
-    if launches == 0:
-        raise AssertionError("run() launched no spike_pmat kernel")
+    old = load_old_pmat(old_pmat) if old_pmat else None
+    widths = []
+    for rows in PMAT_ROWS:
+        args = SP.make_inputs(rows, seed=0, device=dev)
+        pt, pm = SP.spike_pmat_plain(*args)
+        n = pt.numel()
+
+        def same(out, what):
+            t, meta = out
+            bad_t = int((t.view(torch.int32) != pt.view(torch.int32)).sum())
+            bad_m = int((meta != pm).sum())
+            if bad_t or bad_m:
+                raise AssertionError(f"spike_pmat, {rows} rows, {what}: t "
+                                     f"differs on {bad_t} rays, meta on "
+                                     f"{bad_m}")
+            return t
+
+        plain_ms = cuda_ms(lambda: SP.spike_pmat_plain(*args), 2)
+        by = {}
+        for k in SP.SPLITS:
+            same(SP.spike_pmat(*args, _split=k), f"K = {k}")
+            by[k] = cuda_ms(lambda: SP.spike_pmat(*args, _split=k), 20)
+        call = lambda: SP.spike_pmat(*args)
+        t = same(call(), "the wrapper's K")
+        fin = torch.isfinite(pt)
+        max_abs = float(torch.where(fin, (t - pt).abs(), 0.0).max())
+        ms = [cuda_ms(call, 20)]
+        old_ms = None
+        if old is not None:
+            ot, om = torch.empty_like(pt), torch.empty_like(pt)
+            ptrs = [ctypes.c_void_p(x.data_ptr()) for x in (*args, ot, om)]
+
+            def old_call():
+                err = old.spike_pmat_launch(*ptrs, n, ctypes.c_void_p(
+                    torch.cuda.current_stream().cuda_stream))
+                if err:
+                    raise RuntimeError(f"the earlier spike_pmat: CUDA "
+                                       f"error {err}")
+
+            old_call()
+            same((ot, om), "the earlier kernel")
+            old_ms = cuda_ms(old_call, 20)
+        ms.append(cuda_ms(call, 20))
+        w = SP.work(*args)
+        b = SP.bound_ms(w, FP32_OPS_S, HBM_BYTES_S)
+        all_ms = w["ops_all"] / FP32_OPS_S * 1e3
+        k = SP.split_for(n)
+        row = dict(rows=rows, rays=n, K=k, ms=min(ms), ms_turns=ms,
+                   old_ms=old_ms, plain_ms=plain_ms, bound_ms=b["bound_ms"],
+                   bound_by=b["bound_by"], ops=w["ops"],
+                   ops_all=w["ops_all"], disc_pos=w["disc_pos"],
+                   keyed=w["keyed"], warps_pos=w["warps_pos"],
+                   max_abs_err=max_abs, ms_by_K=by)
+        old_txt = "not given" if old_ms is None else (
+            f"{old_ms:.4f} ms ({100 * b['bound_ms'] / old_ms:.1f}% of the "
+            f"bound)")
+        log(f"[6] spike_pmat, {rows} rows ({n} rays): hits "
+            f"{float(fin.float().mean()):.4f}; every K bit-equal to the "
+            f"plain version on t and meta; ms by K "
+            f"{json.dumps({x: round(v, 4) for x, v in by.items()})}")
+        log(f"[6] spike_pmat, {rows} rows: K={k} {ms[0]:.4f} / {ms[1]:.4f} "
+            f"ms ({100 * b['bound_ms'] / min(ms):.1f}% of "
+            f"the bound), earlier kernel {old_txt}, plain {plain_ms:.3f} "
+            f"ms; ops the inputs need {w['ops']} ({w['disc_pos']} pairs of "
+            f"{w['pairs']} with disc > 0, {w['keyed']} with a key; "
+            f"{w['warps_pos']} of {w['warps']} (32-ray warp, sphere) pairs "
+            f"with any disc > 0) -> bound "
+            f"{b['bound_ms']:.5f} ms, {b['bound_by']} ({b['bytes']} bytes -> "
+            f"{b['bytes_ms']:.5f} ms); every op on every pair {w['ops_all']}"
+            f" -> {all_ms:.5f} ms")
+        widths.append(row)
+        del args, pt, pm, t
+    launches = 0
+    for row in widths:
+        SP.spike_pmat.launches = 0
+        row["run"] = SP.run(row["rows"], device=dev)
+        row["launches"] = SP.spike_pmat.launches
+        log(f"[6] run({row['rows']}): {json.dumps(row['run'])}; launches "
+            f"{row['launches']}")
+        if row["launches"] == 0:
+            raise AssertionError(f"run({row['rows']}) launched no "
+                                 f"spike_pmat kernel")
+        launches += row["launches"]
+    wide = widths[-1]
     return dict(name="spike_pmat", route="cuda",
                 source="path_tracer_tpu_torch/ops/csrc/spike_pmat.cu",
                 replaces="tools/spike_pmat.py:82", launches=launches,
-                max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
-                bound_ms=b["bound_ms"], bound_by=b["bound_by"],
-                library_ms=None)
+                max_abs_err=max(w["max_abs_err"] for w in widths),
+                ms=wide["ms"], plain_ms=wide["plain_ms"],
+                bound_ms=wide["bound_ms"], bound_by=wide["bound_by"],
+                library_ms=None, widths=widths)
 
 
 def count_ops(fn) -> int:
@@ -745,7 +879,11 @@ if __name__ == "__main__":
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--old-kernel", default=None,
                     help="an earlier csrc/wave_bounce.cu to time beside K1")
-    rows = main(ap.parse_args().old_kernel)
+    ap.add_argument("--old-pmat", default=None,
+                    help="an earlier csrc/spike_pmat.cu whose launch takes "
+                         "no K, to time beside K2")
+    opts = ap.parse_args()
+    rows = main(opts.old_kernel, opts.old_pmat)
     print(json.dumps({"kernels": rows}))
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

@@ -13,18 +13,52 @@
 // and an IEEE sqrt the two agree bit for bit.
 //
 // What bounds it on the H100.  It moves 36 bytes a ray (seven planes in,
-// two out: 18.9 MB at 524,288 rays, ~6 us at 3.35 TB/s) and executes ~38
-// float ops per (ray, sphere) pair: 10.2 GFLOP at 524,288 rays x 512
-// spheres, ~0.15 ms at the FP32 rate.  It is bound by operations.  The
-// design:
-//   * one thread per ray; the ray stays in registers for the whole fold,
-//     each plane is read and written once, coalesced;
-//   * the 512 x 9 table is staged once a block in shared memory, column
-//     by column, so every thread of a warp reads the same word (a
-//     broadcast) in the fold;
-//   * the fold carries only (best key, best index); the winner's
+// two out: 18.9 MB at 524,288 rays, ~6 us at 3.35 TB/s).  Every (ray,
+// sphere) pair needs the prefix of the quadratic: the centre at tm 8, c-o
+// 3, b 5, cc 6, disc 3 and the test 1, 26 float ops, each its own
+// instruction under -fmad=false.  The roots (an IEEE sqrt of ~10
+// instructions, two roots, their tests and the keep) are needed only
+// where disc > 0: 1.3% of the spike's pairs.  So the kernel is bound by
+// instruction issue on the prefix: ~7.0 GFLOP at 524,288 rays, which the
+// 67 TFLOP/s bound (an FMA counted as two ops) reads as ~0.105 ms; with
+// one instruction an op, ~0.21 ms at 1.98 GHz is the floor.  The first
+// CUDA version (one thread a ray) issued ~75 instructions a pair: nine
+// shared loads, and the sqrt, both roots and both selects on every pair.
+// The design:
+//   * roots only where a discriminant is positive: the R prefixes of a
+//     sphere are computed first (independent work for the scheduler),
+//     then each ends in a branch on disc > 0, so a warp in which no lane
+//     has a positive discriminant (~68% of (warp, sphere) pairs on the
+//     spike's inputs) skips the sqrt, the roots, their tests and the
+//     keep.  SASS (chip_smoke.py phase 2) holds one FSETP-and-branch a
+//     ray slot and unrolled sphere, and the sqrt's slow path as a call
+//     under a second branch inside it;
+//   * R = 2 rays a thread: each sphere record is read once for two rays
+//     (R = 1 and R = 4 were slower at every size: R = 4's 64 registers
+//     allow 4 blocks an SM where 48 allow 5);
+//   * the 512 x 9 table is staged once a block in shared memory as two
+//     16-byte records and one word a sphere ((c0x, c0y, c0z, t0),
+//     (dcx, dcy, dcz, inv_dt), r2): three shared loads a sphere, a
+//     broadcast when the threads of a warp read the same sphere;
+//   * K threads a ray (K = 1 ... 32, a template parameter), so that a
+//     narrow call fills 132 SMs and a wide one has many small blocks (its
+//     last wave a small share): thread `sub` of a ray takes spheres sub,
+//     sub + K, ... (neighbouring threads read neighbouring records), and
+//     the K partial (key, index) pairs are reduced by a shuffle butterfly
+//     in lexicographic order: the least key, and on equal keys the lowest
+//     index, which is the sequential fold's first strict minimum;
+//   * the fold carries only (best key, best index) a ray; the winner's
 //     attribute is one direct load afterwards, where the TPU gathered it
 //     by a one-hot matrix product.
+// Measured on the H100 and dropped, each slower in the same call: a
+// warp vote before the branch; a persistent grid that stages the table
+// once for several ray groups; the table in __constant__ memory; a warp
+// queue that defers the roots of positive discriminants and computes
+// them 32 at a time (bit-equal, but slower); 3 resident blocks of more
+// registers.  Unrolling the sphere loop 1 or 4 times, or blocks of 128
+// or 512 threads, were level within noise.
+// `spike_pmat.split_for` picks K from the ray count, following
+// chip_smoke.py's timing of every K at the reference tool's sizes.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -35,6 +69,8 @@ constexpr int P = 512;       // spheres
 constexpr int NCOL = 9;      // c0x c0y c0z dcx dcy dcz t0 inv_dt r2
 constexpr int META_ROW = 10; // the attribute row written to meta
 constexpr int BLOCK = 256;
+constexpr int R = 2;         // rays a thread
+constexpr unsigned FULL = 0xffffffffu;
 
 struct PmatArgs {
   const float* tab;     // (P, 9) row-major
@@ -51,66 +87,151 @@ struct PmatArgs {
   int n_rays;
 };
 
-__global__ void __launch_bounds__(BLOCK) pmat_kernel(const PmatArgs A) {
-  __shared__ float s_tab[NCOL][P];
-  for (int i = threadIdx.x; i < P * NCOL; i += BLOCK) {
-    s_tab[i % NCOL][i / NCOL] = __ldg(A.tab + i);
+// Thread `sub` of the ray group whose first ray is `base`: its share of
+// the fold for each of the group's R rays (base + i * BLOCK / K), the
+// lexicographic merge of the K shares, and the store.  A ray past n_rays
+// folds the last ray and is not written; every thread runs to the merge,
+// so that the shuffles see full warps.
+template <int K>
+__device__ __forceinline__ void fold_group(const PmatArgs& A,
+                                          const float4* s_c,
+                                          const float4* s_v,
+                                          const float* s_r2, int base,
+                                          int sub) {
+  constexpr int GROUPS = BLOCK / K;
+  float ox[R], oy[R], oz[R], dx[R], dy[R], dz[R], tm[R], a[R], tmin_a[R];
+  float best[R];
+  int bidx[R];
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const int r = min(base + i * GROUPS, A.n_rays - 1);
+    ox[i] = __ldg(A.ox + r);
+    oy[i] = __ldg(A.oy + r);
+    oz[i] = __ldg(A.oz + r);
+    dx[i] = __ldg(A.dx + r);
+    dy[i] = __ldg(A.dy + r);
+    dz[i] = __ldg(A.dz + r);
+    tm[i] = __ldg(A.tm + r);
+    a[i] = dx[i] * dx[i] + dy[i] * dy[i] + dz[i] * dz[i];
+    tmin_a[i] = 1e-3f * a[i];
+    best[i] = INFINITY;
+    bidx[i] = 0;
   }
-  __syncthreads();
-  const int r = blockIdx.x * BLOCK + threadIdx.x;
-  if (r >= A.n_rays) return;
 
-  const float ox = __ldg(A.ox + r), oy = __ldg(A.oy + r), oz = __ldg(A.oz + r);
-  const float dx = __ldg(A.dx + r), dy = __ldg(A.dy + r), dz = __ldg(A.dz + r);
-  const float tm = __ldg(A.tm + r);
-  const float a = dx * dx + dy * dy + dz * dz;
-  const float tmin_a = 1e-3f * a;
-
-  float best = INFINITY;
-  int bidx = 0;
-  for (int p = 0; p < P; ++p) {
-    const float kmov = (tm - s_tab[6][p]) * s_tab[7][p];
-    const float cx = s_tab[0][p] + kmov * s_tab[3][p];
-    const float cy = s_tab[1][p] + kmov * s_tab[4][p];
-    const float cz = s_tab[2][p] + kmov * s_tab[5][p];
-    const float ocx = ox - cx, ocy = oy - cy, ocz = oz - cz;
-    const float b = ocx * dx + ocy * dy + ocz * dz;
-    const float cc = ocx * ocx + ocy * ocy + ocz * ocz - s_tab[8][p];
-    const float disc = b * b - a * cc;
-    const bool has = disc > 0.f;
-    const float sq = __fsqrt_rn(has ? disc : 0.f);
-    const float negb = -b;
-    const float k1 = negb - sq;
-    const float k2 = negb + sq;
-    const bool ok1 = has && (k1 > tmin_a);
-    const bool ok2 = has && (k2 > tmin_a);
-    const float key = ok1 ? k1 : (ok2 ? k2 : INFINITY);
-    if (key < best) {   // strict: the lowest index wins a tie
-      best = key;
-      bidx = p;
+#pragma unroll 2
+  for (int p = sub; p < P; p += K) {
+    const float4 c = s_c[p];
+    const float4 v = s_v[p];
+    const float r2 = s_r2[p];
+    float b[R], disc[R];
+#pragma unroll
+    for (int i = 0; i < R; ++i) {   // the R prefixes, independent work
+      const float kmov = (tm[i] - c.w) * v.w;
+      const float cx = c.x + kmov * v.x;
+      const float cy = c.y + kmov * v.y;
+      const float cz = c.z + kmov * v.z;
+      const float ocx = ox[i] - cx, ocy = oy[i] - cy, ocz = oz[i] - cz;
+      b[i] = ocx * dx[i] + ocy * dy[i] + ocz * dz[i];
+      const float cc = ocx * ocx + ocy * ocy + ocz * ocz - r2;
+      disc[i] = b[i] * b[i] - a[i] * cc;
+    }
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      if (disc[i] > 0.f) {   // the spec's sqrt(where(has, disc, 0))
+        const float sq = __fsqrt_rn(disc[i]);
+        const float negb = -b[i];
+        const float k1 = negb - sq;
+        const float k2 = negb + sq;
+        const float key = k1 > tmin_a[i] ? k1
+                                         : (k2 > tmin_a[i] ? k2 : INFINITY);
+        if (key < best[i]) {   // strict: the lowest index wins a tie
+          best[i] = key;
+          bidx[i] = p;
+        }
+      }
     }
   }
-  A.t_out[r] = best;
-  A.meta_out[r] = best < INFINITY ? __ldg(A.attrs + META_ROW * P + bidx)
-                                  : 0.f;
+
+#pragma unroll
+  for (int off = 1; off < K; off <<= 1) {
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      const float ok = __shfl_xor_sync(FULL, best[i], off);
+      const int oi = __shfl_xor_sync(FULL, bidx[i], off);
+      if (ok < best[i] || (ok == best[i] && oi < bidx[i])) {
+        best[i] = ok;
+        bidx[i] = oi;
+      }
+    }
+  }
+  if (sub != 0) return;
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const int r = base + i * GROUPS;
+    if (r < A.n_rays) {
+      A.t_out[r] = best[i];
+      A.meta_out[r] = best[i] < INFINITY
+                          ? __ldg(A.attrs + META_ROW * P + bidx[i])
+                          : 0.f;
+    }
+  }
+}
+
+// A block holds BLOCK / K ray groups of R rays: thread t is thread t % K
+// of group t / K (consecutive threads read consecutive rays).
+template <int K>
+__global__ void __launch_bounds__(BLOCK, 4) pmat_kernel(const PmatArgs A) {
+  __shared__ float4 s_c[P];    // c0x c0y c0z t0
+  __shared__ float4 s_v[P];    // dcx dcy dcz inv_dt
+  __shared__ float s_r2[P];
+  for (int i = threadIdx.x; i < P; i += BLOCK) {
+    const float* row = A.tab + i * NCOL;
+    s_c[i] = make_float4(__ldg(row + 0), __ldg(row + 1), __ldg(row + 2),
+                         __ldg(row + 6));
+    s_v[i] = make_float4(__ldg(row + 3), __ldg(row + 4), __ldg(row + 5),
+                         __ldg(row + 7));
+    s_r2[i] = __ldg(row + 8);
+  }
+  __syncthreads();
+
+  fold_group<K>(A, s_c, s_v, s_r2,
+                   blockIdx.x * (BLOCK / K * R) + threadIdx.x / K,
+                   threadIdx.x % K);
+}
+
+template <int K>
+int launch(const PmatArgs& a, cudaStream_t stream) {
+  constexpr int rays_a_block = BLOCK / K * R;
+  const int grid = (a.n_rays + rays_a_block - 1) / rays_a_block;
+  pmat_kernel<K><<<grid, BLOCK, 0, stream>>>(a);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Launch on `stream`; returns cudaGetLastError() after the launch
-// (0 = launched).
+// Launch on `stream` with K = split (1, 2, 4, ..., 32) threads a ray;
+// returns cudaGetLastError() after the launch (0 = launched), or
+// cudaErrorInvalidValue for a K the kernel was not built for.
 extern "C" int spike_pmat_launch(const float* tab, const float* attrs,
                                  const float* ox, const float* oy,
                                  const float* oz, const float* dx,
                                  const float* dy, const float* dz,
                                  const float* tm, float* t_out,
-                                 float* meta_out, int n_rays, void* stream) {
+                                 float* meta_out, int n_rays, int split,
+                                 void* stream) {
   if (n_rays <= 0) return 0;
   const PmatArgs a{tab, attrs, ox, oy, oz, dx, dy, dz, tm, t_out, meta_out,
                    n_rays};
-  const int grid = (n_rays + BLOCK - 1) / BLOCK;
-  pmat_kernel<<<grid, BLOCK, 0, static_cast<cudaStream_t>(stream)>>>(a);
-  return (int)cudaGetLastError();
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (split) {
+    case 1: return launch<1>(a, s);
+    case 2: return launch<2>(a, s);
+    case 4: return launch<4>(a, s);
+    case 8: return launch<8>(a, s);
+    case 16: return launch<16>(a, s);
+    case 32: return launch<32>(a, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 extern "C" const char* spike_pmat_error_string(int err) {

@@ -11,7 +11,10 @@ lanes whose win agrees.  Forced to each split of its sphere fold (K
 threads a lane), the kernel is bit-equal to the plain version on every
 lane and plane, on the final scene and on `probe.tie_scene`, whose equal
 sphere keys must go to the lowest index.  The nearest-sphere spike (K2)
-is bit-equal to its plain version on the card.
+is bit-equal to its plain version on the card, at the wrapper's K and
+forced to every K of `spike_pmat.SPLITS`, at 64 and 4096 rows,
+on the tie table (`make_tie_inputs`) and on degenerate rays
+(`make_edge_inputs`).
 """
 import pytest
 import torch
@@ -110,3 +113,44 @@ def test_spike_pmat_kernel_matches_plain_on_card(cuda_device):
     assert SP.spike_pmat.launches == before + 1
     pt, pm = SP.spike_pmat_plain(*args)
     assert torch.equal(t, pt) and torch.equal(meta, pm)
+
+
+PMAT_CASES = {
+    "64 rows": lambda dev: SP.make_inputs(64, seed=0, device=dev),
+    "4096 rows": lambda dev: SP.make_inputs(4096, seed=0, device=dev),
+    "ties": lambda dev: SP.make_tie_inputs(64, device=dev),
+    "edge": lambda dev: SP.make_edge_inputs(device=dev),
+}
+
+
+@pytest.fixture(scope="module")
+def pmat_cases():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    dev = torch.device("cuda")
+    out = {}
+    for name, make in PMAT_CASES.items():
+        args = make(dev)
+        out[name] = (args, SP.spike_pmat_plain(*args))
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", SP.SPLITS)
+@pytest.mark.parametrize("case", list(PMAT_CASES))
+def test_spike_pmat_every_split_is_bit_equal_on_card(pmat_cases, case, k):
+    args, (pt, pm) = pmat_cases[case]
+    t, meta = SP.spike_pmat(*args, _split=k)
+    torch.cuda.synchronize()
+    assert torch.equal(t.view(torch.int32), pt.view(torch.int32))
+    assert torch.equal(meta, pm)
+    if case == "ties":
+        hit = torch.isfinite(t)
+        assert hit.float().mean() > 0.95 and (meta[hit] < 4).all()
+
+
+@pytest.mark.cuda
+def test_spike_pmat_rejects_a_split_it_was_not_built_for(cuda_device):
+    args = SP.make_inputs(SP.TILE_ROWS, seed=1, device=cuda_device)
+    with pytest.raises(ValueError, match="not one of"):
+        SP.spike_pmat(*args, _split=3)

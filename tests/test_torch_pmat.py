@@ -96,8 +96,20 @@ def test_ties_take_the_lowest_index():
 def test_run_on_cpu_and_bound():
     out = TS.run(TS.TILE_ROWS, trials=1, device="cpu")
     assert out["rows"] == TS.TILE_ROWS and out["ms"] > 0
-    b = TS.bound_ms(4096 * 128, 67e12, 3.35e12)
+    rays = TS.TILE_ROWS * 128
+    w = TS.work(*TS.make_inputs(TS.TILE_ROWS, device="cpu"))
+    b = TS.bound_ms(w, 67e12, 3.35e12)
     assert b["bound_by"] == "operations"
-    assert b["bytes"] == 4 * (4096 * 128 * 9 + 512 * 9 + 14 * 512)
+    assert b["bytes"] == 4 * (rays * 9 + 512 * 9 + 14 * 512)
+    # the prefix on every pair, the roots only where disc > 0 (1-2% of the
+    # spike's pairs), the keep only where that gives a key
+    assert w["pairs"] == rays * 512
+    assert 0.01 < w["disc_pos"] / w["pairs"] < 0.02
+    assert 0 < w["keyed"] < w["disc_pos"]
+    assert w["warps"] == rays // 32 * 512
+    assert w["disc_pos"] / 32 < w["warps_pos"] < w["disc_pos"]
+    assert w["ops"] == (w["pairs"] * 26 + w["disc_pos"] * 8 + w["keyed"]
+                        + rays * 7)
+    assert w["ops_all"] == rays * (512 * 38 + 7) > w["ops"]
     with pytest.raises(ValueError, match="multiple"):
         TS.run(10, device="cpu")
