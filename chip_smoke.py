@@ -61,15 +61,35 @@ Phases, each of which raises on failure (exit code != 0):
    time, then the kernel forced to each K (bit-equal to the plain
    version on every plane, and timed), then in turns the kernel at the
    wrapper's K, the earlier kernel given by --old-kernel, and the kernel
-   again; the wrapper's K is held to phase 3's criteria.
+   again; the wrapper's K is held to phase 3's criteria;
+11. app surface, through the command line `path_tracer_tpu_torch.cli`:
+   `info` (backend cuda, one device); each of the five presets at 32x24,
+   4 spp, depth 8, rendered by `render_wq` (what the CLI calls) through
+   the kernel and through the plain version, the frames equal (the kernel
+   is bit-equal to its plain version by design), segments and iterations
+   equal, K1's launches equal to the iterations; each preset at its own
+   size and depth, 8 spp, through `render --device cuda --metrics`, the
+   PNG decoded to the preset's shape, beside one `render_wq` of the same
+   frame, and the fifth full-width launch of that render kept and held
+   bit-equal to the plain version on every plane (each preset's own lane
+   count and K; times and bound); the final scene at 800x600, depth 50,
+   through `--checkpoint-dir`: 8 spp in ranges of 4, resumed to 16, and a fresh
+   16, the two accumulators bit-equal and their mean within 2e-4 of
+   `render_wq` at 16 spp (wall, save and load times); `bench` at its
+   defaults; `--profile-dir` on three_spheres, whose Chrome trace must
+   name K1 among its kernels (the top 10 kernels by device time, host
+   ops a bounce, `device_memory_stats()`).
 Kernel times are CUDA events around 20 launches queued behind a device
 sleep, so the launches run back to back and host launch latency is not
 in them.  Then the kernel table as one JSON line: K1 once for the forward
 path (phase 5's launches, the full-width time) and once for the gradient
 route (phase 8's launches, phase 9's as `launches_train`, the stage
 times weighted by the stages' launches), each with its per-width times,
-and K2 (the three `run` calls' launches, the 4096-row times, its
-per-size times); the card's name and power limit; and last
+K2 (the three `run` calls' launches, the 4096-row times, its
+per-size times), and K1 on the app path (phase 11's checkpointed
+launches, the largest difference of its frames and kept launches, the
+final scene's kept launch's times, each preset's under "presets"); the
+card's name and power limit; and last
 {"ok": true, "device": {...}}.  Nothing here imports JAX.
 """
 from __future__ import annotations
@@ -90,6 +110,8 @@ GW, GH, GSPP = 400, 300, 4        # tools/bench_grad.py's gradient setting
 TRAIN_LR = 0.05                   # the reference's default SGD rate
 PMAT_ROWS = (64, 1024, 4096)      # tools/spike_pmat.py's run() calls
 DRAIN_ROWS = (896, 192, 64)       # render_wq's drain stages at 800x600
+APP_SPP, CKPT_EVERY = 8, 4        # phase 11: the CLI renders, checkpoints
+KEPT_LAUNCH = 5   # phase 11 keeps this full-width launch of a render
 HBM_BYTES_S = 3.35e12     # H100 SXM HBM3 rate (NVIDIA data sheet)
 FP32_OPS_S = 67e12        # H100 SXM FP32 peak outside the tensor cores
 
@@ -394,7 +416,8 @@ def main(old_kernel=None, old_pmat=None) -> list:
     # the gradient route's time a launch: each stage's, by its launches
     grad_row["ms"] = sum(n * w["ms"] for n, w in zip(
         stage_launches, grad_row["widths"])) / sum(stage_launches)
-    return [kernel_row, grad_row, pmat_row]
+    app_row = phase_app(dev)
+    return [kernel_row, grad_row, pmat_row, app_row]
 
 
 def load_old_pmat(path: str):
@@ -873,6 +896,311 @@ def phase_widths(dev, stage_cases, old_kernel) -> list:
             f"{json.dumps({k: round(v, 4) for k, v in by_k.items()})}")
         rows.append(row)
     return rows
+
+
+def read_png(path: str) -> np.ndarray:
+    """An 8-bit RGB PNG with unfiltered rows, as the port's writer makes
+    it, decoded with the standard library (the card's host
+    need not have an image package): (H, W, 3) uint8."""
+    import struct
+    import zlib
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        raise AssertionError(f"{path} is not a PNG")
+    pos, idat, hdr = 8, b"", None
+    while pos < len(data):
+        n, tag = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + n]
+        (crc,) = struct.unpack(">I", data[pos + 8 + n:pos + 12 + n])
+        if zlib.crc32(tag + body) & 0xFFFFFFFF != crc:
+            raise AssertionError(f"{path}: bad CRC in {tag}")
+        pos += 12 + n
+        if tag == b"IHDR":
+            hdr = struct.unpack(">IIBBBBB", body)
+        elif tag == b"IDAT":
+            idat += body
+        elif tag == b"IEND":
+            break
+    w, h, depth, ctype, _, _, interlace = hdr
+    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, 3 * w + 1)
+    if (depth, ctype, interlace) != (8, 2, 0) or rows[:, 0].any():
+        raise AssertionError(f"{path}: not an unfiltered 8-bit RGB PNG")
+    return rows[:, 1:].reshape(h, w, 3)
+
+
+def run_cli(argv) -> str:
+    """`cli.main(argv)` in this process; raises unless it returns 0.
+    Returns what it printed."""
+    import contextlib
+    import io
+    from path_tracer_tpu_torch import cli
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    out = buf.getvalue()
+    if rc != 0:
+        raise AssertionError(f"cli {argv} returned {rc}")
+    return out
+
+
+def kernel_ops(trace_path: str, launches: int) -> dict:
+    """From a Chrome trace of `torch.profiler`: each CUDA kernel's total
+    device time (ms) and count, and the host's top-level PyTorch ops (those
+    not inside another op on the same thread) a K1 launch."""
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    kern = {}
+    for e in events:
+        if e.get("cat") == "kernel":
+            ms, n = kern.get(e["name"], (0.0, 0))
+            kern[e["name"]] = (ms + e.get("dur", 0) / 1e3, n + 1)
+    ops = sorted((e for e in events if e.get("cat") == "cpu_op"),
+                 key=lambda e: (e["tid"], e["ts"], -e.get("dur", 0)))
+    top, end = 0, {}
+    for e in ops:
+        if e["ts"] >= end.get(e["tid"], -1.0):
+            top += 1
+            end[e["tid"]] = e["ts"] + e.get("dur", 0)
+    return dict(kernels=kern, host_ops=len(ops), top_host_ops=top,
+                top_ops_a_bounce=top / max(launches, 1))
+
+
+class keep_launch:
+    """Within the block, copy the inputs of K1's KEPT_LAUNCH-th launch at
+    the first (widest) lane count that has live lanes, for `check_kept`."""
+
+    def __init__(self):
+        from path_tracer_tpu_torch.ops import wave_bounce as WB
+        self.WB, self.seen, self.args = WB, 0, None
+
+    def __enter__(self):
+        launch = self.launch = self.WB._launch
+
+        def hook(tables, st, fix, texel, srv, t_min, max_depth, attenuate,
+                 split=None):
+            if self.seen == 0:
+                self.lanes = st.ox.numel()
+            if (self.args is None and st.ox.numel() == self.lanes
+                    and bool((st.alive > 0).any())):
+                self.seen += 1
+                if self.seen == KEPT_LAUNCH:
+                    self.args = (tables, *(
+                        type(x)(*[t.clone() for t in x])
+                        if isinstance(x, tuple) else x.clone()
+                        for x in (st, fix, texel, srv)))
+                    self.kw = dict(t_min=t_min, max_depth=max_depth,
+                                   attenuate=attenuate)
+            return launch(tables, st, fix, texel, srv, t_min, max_depth,
+                          attenuate, split)
+
+        self.WB._launch = hook
+        return self
+
+    def __exit__(self, *exc):
+        self.WB._launch = self.launch
+
+
+def check_kept(what: str, kept: keep_launch) -> dict:
+    """The kept launch through the wrapper (its own K) bit-equal to the
+    plain version on every plane, as phase 10 holds every K; its time,
+    the plain version's and the bound."""
+    WB = kept.WB
+    if kept.args is None:
+        raise AssertionError(f"{what}: no launch {KEPT_LAUNCH} at full "
+                             f"width")
+    tables, st, fix, texel, srv = kept.args
+    kw = kept.kw
+    call = lambda: WB.wave_bounce(tables, st, fix, texel, srv,
+                                  tile_rows=st.ox.shape[0], **kw)
+    plain = WB.wave_bounce_plain(tables, st, fix, texel, srv, **kw)
+    kern = call()
+    bits = lambda out: [x.view(torch.int32) if x.dtype == torch.float32
+                        else x for x in (*out.state, *out.fix, out.win,
+                                         out.t_hit)]
+    if not all(torch.equal(x, y) for x, y in zip(bits(kern), bits(plain))):
+        raise AssertionError(f"{what}: the kept launch is not bit-equal to "
+                             f"the plain version")
+    _, max_abs = k1_compare(kern, plain, what)
+    ms = cuda_ms(call, 20)
+    plain_ms = cuda_ms(lambda: WB.wave_bounce_plain(tables, st, fix, texel,
+                                                    srv, **kw), 2)
+    nbytes, ops = k1_bound(tables, st, fix, srv)
+    t_b, t_o = nbytes / HBM_BYTES_S * 1e3, ops / FP32_OPS_S * 1e3
+    row = dict(lanes=st.ox.numel(), K=WB.split_for(st.ox.numel()), ms=ms,
+               plain_ms=plain_ms, bound_ms=max(t_b, t_o),
+               bound_by="bytes" if t_b >= t_o else "operations",
+               max_abs_err=max_abs)
+    log(f"[11] {what}: launch {KEPT_LAUNCH} at {row['lanes']} lanes (K="
+        f"{row['K']}) bit-equal to plain; kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.3f} ms, bound {row['bound_ms']:.5f} ms "
+        f"({row['bound_by']})")
+    return row
+
+
+def phase_app(dev) -> dict:
+    """11. The app surface through the command line; returns K1's
+    kernels-line row for the app path."""
+    import shutil
+    from path_tracer_tpu_torch import cli
+    from path_tracer_tpu_torch.engine import checkpoint as CK
+    from path_tracer_tpu_torch.engine.wq import render_wq
+    from path_tracer_tpu_torch.ops import wave_bounce as WB
+    from path_tracer_tpu_torch.scene.presets import PRESETS
+    from path_tracer_tpu_torch.utils import profiling
+
+    info = json.loads(run_cli(["info"]))
+    log(f"[11] info: backend {info['backend']}, devices {info['devices']}")
+    if info["backend"] != "cuda" or len(info["devices"]) != 1:
+        raise AssertionError(f"info: want backend cuda and one device, got "
+                             f"{info['backend']} {info['devices']}")
+
+    # every preset through the kernel and through the plain version: the
+    # two are bit-equal by design, so the frames must be equal
+    frame_err = 0.0
+    for name in PRESETS:
+        out = {}
+        for d in ("cuda", "cpu"):
+            scene, cam = cli.preset_scene(name, 32, 24, d)
+            WB.wave_bounce.launches = 0
+            img, segs, iters, _ = render_wq(scene, cam, 32, 24, 4,
+                                            max_depth=8, tile_rows=8,
+                                            window=3, return_stats=True,
+                                            device=d)
+            out[d] = (img.cpu().numpy(), segs, iters)
+            if d == "cuda" and WB.wave_bounce.launches != iters:
+                raise AssertionError(f"{name}: {WB.wave_bounce.launches} "
+                                     f"launches for {iters} iterations")
+        (k_img, k_segs, k_iters), (p_img, p_segs, p_iters) = (
+            out["cuda"], out["cpu"])
+        max_abs = float(np.abs(k_img - p_img).max())
+        frame_err = max(frame_err, max_abs)
+        log(f"[11] {name} 32x24x4 depth 8, kernel vs plain: max "
+            f"{max_abs}, segments {k_segs} / {p_segs}, iters {k_iters} / "
+            f"{p_iters}")
+        if not (np.isfinite(k_img).all() and max_abs == 0
+                and k_segs == p_segs and k_iters == p_iters):
+            raise AssertionError(f"{name}: the kernel's frame differs from "
+                                 f"the plain version's")
+
+    # every preset at its own size and depth through `render`, one of its
+    # full-width launches kept and held bit-equal to the plain version
+    os.makedirs("build", exist_ok=True)
+    kept_rows = {}
+    for name, p in PRESETS.items():
+        png = os.path.join("build", f"cli_{name}.png")
+        with keep_launch() as kept:
+            text = run_cli(["render", "--scene", name, "--spp",
+                            str(APP_SPP), "--device", "cuda", "-o", png,
+                            "--metrics"])
+        metrics = json.loads(text.strip().splitlines()[-1])
+        shape = read_png(png).shape
+        if shape != (p.height, p.width, 3):
+            raise AssertionError(f"{png} is {shape}, not {p.height}x"
+                                 f"{p.width}")
+        scene, cam = cli.preset_scene(name, p.width, p.height, dev)
+        t0 = time.perf_counter()
+        _, segs, iters, _ = render_wq(scene, cam, p.width, p.height, APP_SPP,
+                                      p.max_depth, return_stats=True,
+                                      device=dev)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        log(f"[11] render {name} {p.width}x{p.height}x{APP_SPP} depth "
+            f"{p.max_depth}: {json.dumps(metrics)}; render_wq alone "
+            f"{dt:.4f} s, {segs / dt / 1e6:.3f} Mray/s, {iters} iterations")
+        kept_rows[name] = check_kept(f"render {name}", kept)
+
+    # the final scene through --checkpoint-dir
+    saves, loads = [], []
+    save, load = CK._save_atomic, CK.load_checkpoint
+
+    def timed(fn, into):
+        def call(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                into.append(time.perf_counter() - t0)
+        return call
+
+    dirs = [os.path.join("build", f"ckpt_{x}") for x in "ab"]
+    for d in dirs:
+        shutil.rmtree(d, ignore_errors=True)
+    runs = [(dirs[0], 8), (dirs[0], 16), (dirs[1], 16)]
+    walls = []
+    CK._save_atomic, CK.load_checkpoint = timed(save, saves), timed(load,
+                                                                    loads)
+    WB.wave_bounce.launches = 0
+    try:
+        for d, spp in runs:
+            t0 = time.perf_counter()
+            run_cli(["render", "--scene", "final_scene", "--width", str(W),
+                     "--height", str(H), "--max-depth", str(DEPTH), "--spp",
+                     str(spp), "--checkpoint-dir", d, "--checkpoint-every",
+                     str(CKPT_EVERY), "--device", "cuda", "-o",
+                     os.path.join(d, "final.png")])
+            walls.append(time.perf_counter() - t0)
+    finally:
+        CK._save_atomic, CK.load_checkpoint = save, load
+    ck_launches = WB.wave_bounce.launches
+    accs = [np.load(os.path.join(d, "accum.npz"))["acc"] for d in dirs]
+    if not np.array_equal(accs[0].view(np.uint32), accs[1].view(np.uint32)):
+        raise AssertionError("the resumed accumulator differs from the "
+                             "uninterrupted one")
+    scene, cam = cli.preset_scene("final_scene", W, H, dev)
+    ref = render_wq(scene, cam, W, H, 16, DEPTH, device=dev).cpu().numpy()
+    mean = (accs[0] / np.float32(16)).reshape(H, W, 3)
+    ck_err = float(np.abs(mean - ref).max())
+    log(f"[11] checkpointed final scene {W}x{H} depth {DEPTH}: walls "
+        f"{[round(x, 4) for x in walls]} s (8 spp, resumed to 16, fresh 16, "
+        f"ranges of {CKPT_EVERY}); {len(saves)} saves "
+        f"{[round(x, 4) for x in saves]} s, {len(loads)} loads "
+        f"{[round(x, 4) for x in loads]} s; accumulators bit-equal; mean vs "
+        f"render_wq at 16 spp max {ck_err:.3g}; K1 launches {ck_launches}")
+    if ck_err > 2e-4 or ck_launches == 0:
+        raise AssertionError("checkpointed render: mean off render_wq or no "
+                             "kernel launch")
+
+    log(f"[11] bench: {run_cli(['bench']).strip()}")
+
+    prof = os.path.join("build", "profile")
+    shutil.rmtree(prof, ignore_errors=True)
+    WB.wave_bounce.launches = 0
+    text = run_cli(["render", "--scene", "three_spheres", "--device", "cuda",
+                    "--profile-dir", prof, "--metrics", "-o",
+                    os.path.join("build", "prof.png")])
+    render_s = json.loads(text.strip().splitlines()[-1])["phases_s"]["render"]
+    k = kernel_ops(os.path.join(prof, profiling.TRACE_FILE),
+                   WB.wave_bounce.launches)
+    top = sorted(k["kernels"].items(), key=lambda x: -x[1][0])[:10]
+    k1 = [v for n, v in k["kernels"].items() if "wave_kernel" in n]
+    all_ms = sum(ms for ms, _ in k["kernels"].values())
+    log(f"[11] profile of three_spheres: {WB.wave_bounce.launches} K1 "
+        f"launches; kernels {len(k['kernels'])} names, "
+        f"{sum(c for _, c in k['kernels'].values())} launches, {all_ms:.3f} "
+        f"ms of device time ({100 * all_ms / 1e3 / render_s:.1f}% of the "
+        f"{render_s} s render under the profiler), of which K1 "
+        f"{sum(m for m, _ in k1):.3f} ms in {sum(c for _, c in k1)}; top "
+        f"kernels by device time (ms, count): "
+        + "; ".join(f"{n[:80]} {ms:.3f} ({c})" for n, (ms, c) in top))
+    log(f"[11] host ops: {k['host_ops']} in all, {k['top_host_ops']} top "
+        f"level, {k['top_ops_a_bounce']:.1f} top-level a bounce; device "
+        f"memory {json.dumps(profiling.device_memory_stats())}")
+    if not any("wave_kernel" in n for n in k["kernels"]):
+        raise AssertionError("the profiler trace names no wave_kernel")
+
+    # the row: the checkpointed renders' launches, the final scene's kept
+    # launch at full width, the largest difference of any frame or launch
+    row = kept_rows["final_scene"]
+    return dict(name="wave_bounce", path="app", route="cuda",
+                source="path_tracer_tpu_torch/ops/csrc/wave_bounce.cu",
+                replaces="path_tracer_tpu/ops/pallas/wave_bounce.py:536",
+                launches=ck_launches,
+                max_abs_err=max([frame_err] + [r["max_abs_err"]
+                                               for r in kept_rows.values()]),
+                ms=row["ms"], plain_ms=row["plain_ms"],
+                bound_ms=row["bound_ms"], bound_by=row["bound_by"],
+                library_ms=None, presets=kept_rows)
 
 
 if __name__ == "__main__":

@@ -2,10 +2,12 @@
 
 Gamma 2.0 via sqrt, clamp to [0, 0.999], scale by 256, truncate, and flip
 vertically (the framebuffer is y-up, PNG rows run top-down).  The PNG
-writer needs only the standard library.
+writer needs only the standard library.  `dump_ppm` mirrors
+dump_image_ppm (main.cpp:17-31).
 """
 from __future__ import annotations
 
+import io
 import struct
 import zlib
 
@@ -35,3 +37,14 @@ def save_png(path: str, fb) -> None:
                 + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
                 + chunk(b"IDAT", zlib.compress(raw, 6))
                 + chunk(b"IEND", b""))
+
+
+def dump_ppm(fb) -> str:
+    """P3 PPM text, rows top-down like dump_image_ppm (main.cpp:17-31)."""
+    pix = tonemap(fb).astype(np.int32)
+    h, w, _ = pix.shape
+    out = io.StringIO()
+    out.write(f"P3\n{w} {h}\n255\n")
+    for row in pix.reshape(h * w, 3):
+        out.write(f"{row[0]} {row[1]} {row[2]}\n")
+    return out.getvalue()
