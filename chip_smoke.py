@@ -13,7 +13,8 @@ Phases, each of which raises on failure (exit code != 0):
 1. device: CUDA must be available; prints the GPU name and power limit;
 2. build: compiles every kernel from path_tracer_tpu_torch/ops/csrc with
    nvcc, one process per source, all at once; prints ptxas's registers,
-   spills and shared memory for each kernel instantiation, and for each
+   spills and shared memory for each kernel instantiation (K1's run-time
+   media count, for 5 to 23 media, as NMED=run-time), and for each
    K2 instantiation what its SASS holds (instructions, branches, the
    branches on the disc test, the sqrt's reciprocal roots and slow-path
    calls);
@@ -21,7 +22,11 @@ Phases, each of which raises on failure (exit code != 0):
    and through its plain PyTorch version, both on the card, on a final-
    scene state at full width (800x600: 483,328 lanes) a few bounces in,
    with stalls and pending fixups; prints the agreement, the times and
-   K1's resident blocks an SM for each instantiation;
+   K1's resident blocks an SM for each instantiation (1-4 media and 6
+   through the run-time count); then the final scene with 6 media
+   (`probe.media_scene`: the run-time media count) and with 4 (the
+   templated one), one full-width launch each, bit-equal to the plain
+   version on every plane, timed beside its bound;
 4. small frame: the final scene at 32x24, 4 spp, depth 8 rendered through
    the kernel (device="cuda") and through the plain version
    (device="cpu"), held to the work-queue test envelope;
@@ -78,7 +83,22 @@ Phases, each of which raises on failure (exit code != 0):
    `render_wq` at 16 spp (wall, save and load times); `bench` at its
    defaults; `--profile-dir` on three_spheres, whose Chrome trace must
    name K1 among its kernels (the top 10 kernels by device time, host
-   ops a bounce, `device_memory_stats()`).
+   ops a bounce, `device_memory_stats()`);
+12. multi-device (`parallel/`): (a) world size 1 on NCCL, phase 5's frame
+   (800x600, depth 50, 80 spp) through `render_sharded` on a 1x1 mesh
+   and `assemble_image`, bit-equal to phase 5's `render_wq`, its Mray/s,
+   and its fifth full-width launch held bit-equal to the plain version;
+   (b) two ranks on this one card over gloo (NCCL refuses two ranks on
+   one GPU), started by `parallel.launch.spawn`, the final scene at
+   800x600, depth 50, 8 spp on a (2x1) and a (1x2) mesh, each assembled
+   frame within rtol 1e-5, atol 1e-6 of one `render_wq`; each rank's wall
+   time, K1's launches (= its iterations) and the collectives' time;
+   (c) in the same ranks, one train step on a (2x1) mesh at phase 9's
+   setting and perturbation: its loss within 1e-5 relative of phase 9's
+   first step, each updated param leaf within 1e-5 relative L2, the
+   two ranks' params bit-equal, and each rank's K1 launches equal to the
+   recorded steps of its half of the pixels; (d)
+   `dryrun.dryrun_multichip(2)` on the card (gloo).
 Kernel times are CUDA events around 20 launches queued behind a device
 sleep, so the launches run back to back and host launch latency is not
 in them.  Then the kernel table as one JSON line: K1 once for the forward
@@ -88,8 +108,11 @@ times weighted by the stages' launches), each with its per-width times,
 K2 (the three `run` calls' launches, the 4096-row times, its
 per-size times), and K1 on the app path (phase 11's checkpointed
 launches, the largest difference of its frames and kept launches, the
-final scene's kept launch's times, each preset's under "presets"); the
-card's name and power limit; and last
+final scene's kept launch's times, each preset's under "presets"), and
+K1 on the sharded path (phase 12's launches in (a)-(c), its kept launch's
+times and difference, and the (b) frames' largest difference from
+`render_wq` as "frame_err"); K1's forward row also holds phase 3's 4-
+and 6-media launches under "media"; the card's name and power limit; and last
 {"ok": true, "device": {...}}.  Nothing here imports JAX.
 """
 from __future__ import annotations
@@ -112,6 +135,8 @@ PMAT_ROWS = (64, 1024, 4096)      # tools/spike_pmat.py's run() calls
 DRAIN_ROWS = (896, 192, 64)       # render_wq's drain stages at 800x600
 APP_SPP, CKPT_EVERY = 8, 4        # phase 11: the CLI renders, checkpoints
 KEPT_LAUNCH = 5   # phase 11 keeps this full-width launch of a render
+MEDIA_OCC = (1, 2, 3, 4, 6)       # phase 3: K1's occupancy at these counts
+SHARD_SPP = 8                     # phase 12 (b): the two-rank frames
 HBM_BYTES_S = 3.35e12     # H100 SXM HBM3 rate (NVIDIA data sheet)
 FP32_OPS_S = 67e12        # H100 SXM FP32 peak outside the tensor cores
 
@@ -137,15 +162,19 @@ def cuda_ms(fn, reps: int) -> float:
 
 
 def ptxas_report(text: str) -> list:
-    """(kernel, registers, spill stores, spill loads, static shared bytes)
-    for each entry function in nvcc's -Xptxas -v output."""
+    """(kernel, registers, stack frame bytes, spill stores, spill loads,
+    static shared bytes) for each entry function in nvcc's -Xptxas -v
+    output."""
     rows, fn = [], None
     for line in text.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
-            fn = dict(name=m.group(1), spill_st=0, spill_ld=0)
+            fn = dict(name=m.group(1), stack=0, spill_st=0, spill_ld=0)
             rows.append(fn)
             continue
+        m = re.search(r"(\d+) bytes stack frame", line)
+        if m and fn is not None:
+            fn["stack"] = int(m.group(1))
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
         if m and fn is not None:
@@ -164,7 +193,8 @@ def kernel_name(mangled: str) -> str:
     """A kernel instantiation's name with its template arguments."""
     k = re.search(r"wave_kernelILi(\d+)ELi(\d+)E", mangled)
     if k:
-        return f"wave_kernel<NMED={k.group(1)}, K={k.group(2)}>"
+        nmed = "run-time" if k.group(1) == "0" else k.group(1)
+        return f"wave_kernel<NMED={nmed}, K={k.group(2)}>"
     k = re.search(r"pmat_kernelILi(\d+)E", mangled)
     if k:
         return f"pmat_kernel<K={k.group(1)}>"
@@ -253,6 +283,62 @@ def k1_bound(tables, st, fix, srv):
     return nbytes, n_adv * fold_ops_per_lane(tables)
 
 
+def k1_bits(out):
+    """Every plane of a wave_bounce output, floats as their bits."""
+    return [x.view(torch.int32) if x.dtype == torch.float32 else x
+            for x in (*out.state, *out.fix, out.win, out.t_hit)]
+
+
+def phase_media(dev) -> dict:
+    """3, more media: a full-width K1 launch on the final scene with 6
+    media (the kernel's run-time media count) and with 4 (its templated
+    instantiation), each a probe state a few bounces in: bit-equal to the
+    plain version on every plane, timed, beside its bound."""
+    from path_tracer_tpu_torch.engine.wq import _pack_atlas_flat
+    from path_tracer_tpu_torch.ops import probe
+    from path_tracer_tpu_torch.ops import wave_bounce as WB
+    rows = -(-W * H // (64 * 128)) * 64
+    kw = dict(t_min=1e-3, max_depth=DEPTH, attenuate=False)
+    out = {}
+    for n_med in (4, 6):
+        scene, cam = probe.media_scene(W / H, n_med, device=dev)
+        tables = WB.pack_scene(scene)._replace(
+            cam=WB.pack_camera(cam, W, H, dev), seed=0)
+        atlas, _ = _pack_atlas_flat(scene.textures.atlas)
+        st, fix, texel, srv = probe.probe_state(
+            tables, cam, W, H, atlas, rows=rows, bounces=3, max_depth=DEPTH,
+            seed=1, tile_rows=64)
+        call = lambda: WB.wave_bounce(tables, st, fix, texel, srv,
+                                      tile_rows=64, **kw)
+        plain = WB.wave_bounce_plain(tables, st, fix, texel, srv, **kw)
+        kern = call()
+        if not all(torch.equal(x, y) for x, y in zip(k1_bits(kern),
+                                                     k1_bits(plain))):
+            raise AssertionError(f"{n_med} media: the kernel is not "
+                                 f"bit-equal to the plain version")
+        _, max_abs = k1_compare(kern, plain, f"{n_med} media")
+        ms = cuda_ms(call, 20)
+        plain_ms = cuda_ms(lambda: WB.wave_bounce_plain(
+            tables, st, fix, texel, srv, **kw), 2)
+        nbytes, ops = k1_bound(tables, st, fix, srv)
+        t_b, t_o = nbytes / HBM_BYTES_S * 1e3, ops / FP32_OPS_S * 1e3
+        win = kern.win
+        cls = torch.remainder(torch.div(win - 1, 1024,
+                                        rounding_mode="floor"), 4)
+        media_wins = int(((win > 0) & (cls == 3)).sum())
+        out[n_med] = dict(lanes=st.ox.numel(), K=WB.split_for(st.ox.numel()),
+                          ms=ms, plain_ms=plain_ms, bound_ms=max(t_b, t_o),
+                          bound_by="bytes" if t_b >= t_o else "operations",
+                          max_abs_err=max_abs, media_wins=media_wins)
+        log(f"[3] {n_med} media ({'run-time' if n_med > 4 else 'templated'}"
+            f" count), {st.ox.numel()} lanes (K={out[n_med]['K']}): "
+            f"bit-equal to plain on every plane, {media_wins} lanes end in "
+            f"a medium; kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
+            f"{max(t_b, t_o):.5f} ms ({out[n_med]['bound_by']})")
+        del st, fix, texel, srv, kern, plain
+    return out
+
+
 def time_host(fn, reps: int) -> float:
     """Mean wall seconds of fn() ending in a device synchronise, after
     one warm-up call (the reference's bench_grad timing)."""
@@ -290,7 +376,8 @@ def main(old_kernel=None, old_pmat=None) -> list:
         f"{time.perf_counter() - t0:.1f} s wall")
     for name, text in build.build_log.items():
         for r in ptxas_report(text):
-            log(f"    {name}: {r['name']}: {r.get('regs')} registers, spill "
+            log(f"    {name}: {r['name']}: {r.get('regs')} registers, stack "
+                f"frame {r['stack']} B, spill "
                 f"stores {r['spill_st']} B, loads {r['spill_ld']} B, "
                 f"{r.get('smem')} B static shared memory")
     for r in sass_report(build.lib_path("spike_pmat")):
@@ -323,8 +410,8 @@ def main(old_kernel=None, old_pmat=None) -> list:
     log(f"[3] kernel {ms:.4f} ms/launch, plain {plain_ms:.3f} ms, bound "
         f"{max(t_bytes, t_ops):.4f} ms (bytes {nbytes} -> {t_bytes:.4f} ms, "
         f"fold ops {ops} -> {t_ops:.4f} ms)")
-    occ = {f"NMED={m}": {k: WB.occupancy(m, k, tables.fold.shape[0])
-                         for k in WB.SPLITS} for m in range(1, WB.MAX_MED + 1)}
+    occ = {f"n_med={m}": {k: WB.occupancy(m, k, tables.fold.shape[0])
+                          for k in WB.SPLITS} for m in MEDIA_OCC}
     log(f"[3] K1 resident blocks an SM, by K, with "
         f"this scene's {tables.fold.shape[0] * 16}-byte fold table: "
         f"{json.dumps(occ)}")
@@ -337,6 +424,7 @@ def main(old_kernel=None, old_pmat=None) -> list:
         bound_by="bytes" if t_bytes >= t_ops else "operations",
         library_ms=None)
     del st, fix, texel, srv, kern, plain
+    kernel_row["media"] = phase_media(dev)
 
     # ---- 4. small frame: kernel against plain ------------------------------
     small = {}
@@ -409,7 +497,7 @@ def main(old_kernel=None, old_pmat=None) -> list:
     pmat_row = phase_pmat(dev, old_pmat)
     phase_grad_small()
     grad_row, stage_cases, stage_launches = phase_grad_full(dev)
-    grad_row["launches_train"] = phase_train(dev)
+    grad_row["launches_train"], train_first = phase_train(dev)
     widths = phase_widths(dev, stage_cases, old_kernel)
     kernel_row["widths"] = widths[:-len(stage_cases)]
     grad_row["widths"] = widths[-len(stage_cases):]
@@ -417,7 +505,8 @@ def main(old_kernel=None, old_pmat=None) -> list:
     grad_row["ms"] = sum(n * w["ms"] for n, w in zip(
         stage_launches, grad_row["widths"])) / sum(stage_launches)
     app_row = phase_app(dev)
-    return [kernel_row, grad_row, pmat_row, app_row]
+    sharded_row = phase_sharded(dev, frame, train_first)
+    return [kernel_row, grad_row, pmat_row, app_row, sharded_row]
 
 
 def load_old_pmat(path: str):
@@ -754,14 +843,32 @@ def record_checked(scene, cam, w: int, h: int, rcfg: dict,
     return acc
 
 
-def phase_train(dev) -> int:
+def perturb_colors(params):
+    """The material colours' x raised by 0.2 (phases 9 and 12)."""
+    c = params[0].materials.color
+    return (params[0]._replace(materials=params[0].materials._replace(
+        color=type(c)(c.x + 0.2, c.y, c.z))), params[1])
+
+
+def only_material_colors(grads):
+    """The gradient tree with every leaf but the material colours
+    zeroed."""
+    from path_tracer_tpu_torch.diff import params as P
+    zs, zc = P.tree_map(lambda g: None if g is None
+                        else torch.zeros_like(g), grads)
+    return (zs._replace(materials=zs.materials._replace(
+        color=grads[0].materials.color)), zc)
+
+
+def phase_train(dev) -> tuple:
     """9. Three SGD steps on the material colours from a +0.2 perturbation
     toward a target recorded at the true params, at the reference's
     default lr.  A +0.2 glass tint gains energy at every one of up to 50
     dielectric bounces, so a few firefly pixels dominate the first loss
     and its gradient; at tests/test_sharding.py's lr 0.5 (depth 3 there)
     this phase diverged (0.0843 -> 3.83 -> inf on an H100 80GB HBM3 at
-    700 W)."""
+    700 W).  Returns the kernel's launches and, for phase 12, the target
+    and the first step's loss and params (numpy)."""
     from path_tracer_tpu_torch.diff import params as P
     from path_tracer_tpu_torch.diff import queued_vjp as Q
     from path_tracer_tpu_torch.ops import wave_bounce as WB
@@ -774,25 +881,18 @@ def phase_train(dev) -> int:
     with torch.no_grad():
         target = f(scene, cam)
     params, (s_scene, s_cam) = scene_camera_params(scene, cam)
-    c = params[0].materials.color
-    params = (params[0]._replace(materials=params[0].materials._replace(
-        color=type(c)(c.x + 0.2, c.y, c.z))), params[1])
-
-    def only_material_colors(grads):
-        zs, zc = P.tree_map(lambda g: None if g is None
-                            else torch.zeros_like(g), grads)
-        return (zs._replace(materials=zs.materials._replace(
-            color=grads[0].materials.color)), zc)
-
+    params = perturb_colors(params)
     step = make_train_step(s_scene, s_cam, w, h, spp, depth, lr=lr,
                            grad_filter=only_material_colors, device=dev)
     pix = torch.arange(w * h, device=dev)
     losses = []
     WB.wave_bounce.launches = 0
     t0 = time.perf_counter()
-    for _ in range(3):
+    for i in range(3):
         params, loss = step(params, target, pix)
         losses.append(float(loss))
+        if i == 0:
+            first = [x.cpu().numpy() for x in P.leaves(params)]
     dt = (time.perf_counter() - t0) / 3
     launches = WB.wave_bounce.launches
     steps = (f.cfg["n_windows"] + f.cfg["n_windows_b"]) * f.cfg["window"]
@@ -804,7 +904,8 @@ def phase_train(dev) -> int:
     if launches != 3 * steps:
         raise AssertionError(f"train steps launched the kernel {launches} "
                              f"times, not 3 x {steps}")
-    return launches
+    return launches, dict(target=target.cpu().numpy(), loss=losses[0],
+                          params=first)
 
 
 def forward_cases(dev) -> list:
@@ -847,23 +948,19 @@ def phase_widths(dev, stage_cases, old_kernel) -> list:
         old.wave_bounce_error_string.restype = ctypes.c_char_p
     new_lib = WB._lib
 
-    def bits(out):
-        return [x.view(torch.int32) if x.dtype == torch.float32 else x
-                for x in (*out.state, *out.fix, out.win, out.t_hit)]
-
     rows = []
     for name, (tables, st, fix, texel, srv, kw) in cases:
         lanes = st.ox.numel()
         call = lambda **k: WB.wave_bounce(tables, st, fix, texel, srv,
                                           tile_rows=st.ox.shape[0], **kw, **k)
         plain = WB.wave_bounce_plain(tables, st, fix, texel, srv, **kw)
-        plain_bits = bits(plain)
+        plain_bits = k1_bits(plain)
         plain_ms = cuda_ms(lambda: WB.wave_bounce_plain(
             tables, st, fix, texel, srv, **kw), 2)
         by_k = {}
         for k in WB.SPLITS:
             if not all(torch.equal(x, y) for x, y in
-                       zip(bits(call(_split=k)), plain_bits)):
+                       zip(k1_bits(call(_split=k)), plain_bits)):
                 raise AssertionError(f"{name}: K={k} is not bit-equal to "
                                      f"the plain version")
             by_k[k] = cuda_ms(lambda: call(_split=k), 20)
@@ -873,7 +970,7 @@ def phase_widths(dev, stage_cases, old_kernel) -> list:
             WB._lib = lambda: old
             try:
                 if not all(torch.equal(x, y) for x, y in
-                           zip(bits(call()), plain_bits)):
+                           zip(k1_bits(call()), plain_bits)):
                     raise AssertionError(f"{name}: the earlier kernel is not "
                                          f"bit-equal to the plain version")
                 old_ms = cuda_ms(call, 20)
@@ -1001,7 +1098,7 @@ class keep_launch:
         self.WB._launch = self.launch
 
 
-def check_kept(what: str, kept: keep_launch) -> dict:
+def check_kept(what: str, kept: keep_launch, tag: str = "11") -> dict:
     """The kept launch through the wrapper (its own K) bit-equal to the
     plain version on every plane, as phase 10 holds every K; its time,
     the plain version's and the bound."""
@@ -1015,10 +1112,8 @@ def check_kept(what: str, kept: keep_launch) -> dict:
                                   tile_rows=st.ox.shape[0], **kw)
     plain = WB.wave_bounce_plain(tables, st, fix, texel, srv, **kw)
     kern = call()
-    bits = lambda out: [x.view(torch.int32) if x.dtype == torch.float32
-                        else x for x in (*out.state, *out.fix, out.win,
-                                         out.t_hit)]
-    if not all(torch.equal(x, y) for x, y in zip(bits(kern), bits(plain))):
+    if not all(torch.equal(x, y) for x, y in zip(k1_bits(kern),
+                                                 k1_bits(plain))):
         raise AssertionError(f"{what}: the kept launch is not bit-equal to "
                              f"the plain version")
     _, max_abs = k1_compare(kern, plain, what)
@@ -1031,7 +1126,7 @@ def check_kept(what: str, kept: keep_launch) -> dict:
                plain_ms=plain_ms, bound_ms=max(t_b, t_o),
                bound_by="bytes" if t_b >= t_o else "operations",
                max_abs_err=max_abs)
-    log(f"[11] {what}: launch {KEPT_LAUNCH} at {row['lanes']} lanes (K="
+    log(f"[{tag}] {what}: launch {KEPT_LAUNCH} at {row['lanes']} lanes (K="
         f"{row['K']}) bit-equal to plain; kernel {ms:.4f} ms, plain "
         f"{plain_ms:.3f} ms, bound {row['bound_ms']:.5f} ms "
         f"({row['bound_by']})")
@@ -1169,7 +1264,8 @@ def phase_app(dev) -> dict:
     text = run_cli(["render", "--scene", "three_spheres", "--device", "cuda",
                     "--profile-dir", prof, "--metrics", "-o",
                     os.path.join("build", "prof.png")])
-    render_s = json.loads(text.strip().splitlines()[-1])["phases_s"]["render"]
+    render_s = json.loads(text.strip().splitlines()[-1])["phases_s"][
+        "compile+render"]
     k = kernel_ops(os.path.join(prof, profiling.TRACE_FILE),
                    WB.wave_bounce.launches)
     top = sorted(k["kernels"].items(), key=lambda x: -x[1][0])[:10]
@@ -1201,6 +1297,198 @@ def phase_app(dev) -> dict:
                 ms=row["ms"], plain_ms=row["plain_ms"],
                 bound_ms=row["bound_ms"], bound_by=row["bound_by"],
                 library_ms=None, presets=kept_rows)
+
+
+def warm_mesh(mesh, dev) -> None:
+    """One reduction on each axis group (NCCL sets a communicator up at
+    its first collective), then the mesh's counters from zero."""
+    for axis in ("tiles", "spp"):
+        mesh.psum(torch.zeros(1, device=dev), axis)
+    mesh.collective_s, mesh.collectives = 0.0, 0
+
+
+def sharded_rank(target: np.ndarray) -> dict:
+    """12 (b) and (c), one of two ranks on the one card (gloo): the final
+    scene at 800x600, depth 50, SHARD_SPP spp on a (2x1) and a (1x2) mesh,
+    assembled; then one train step on a (2x1) mesh at phase 9's setting
+    from its perturbation, toward its target.  Each with its wall time,
+    K1's launches and iterations (for the step, the recorded steps of the
+    rank's half of the pixels, as phase 9 counts them), and the
+    collectives' time."""
+    from path_tracer_tpu_torch.diff import params as P
+    from path_tracer_tpu_torch.diff import queued_vjp as Q
+    from path_tracer_tpu_torch.ops import wave_bounce as WB
+    from path_tracer_tpu_torch.parallel.mesh import (make_mesh,
+                                                     make_train_step,
+                                                     render_sharded,
+                                                     scene_camera_params)
+    from path_tracer_tpu_torch.parallel.multihost import assemble_image
+    from path_tracer_tpu_torch.scene.presets import build_final_scene
+    out = {}
+    for shape in ((2, 1), (1, 2)):
+        mesh = make_mesh(*shape)
+        dev = mesh.device
+        scene, cam = build_final_scene(W / H, device=dev)
+        warm_mesh(mesh, dev)
+        WB.wave_bounce.launches = 0
+        t0 = time.perf_counter()
+        fb, segs, iters, _ = render_sharded(scene, cam, W, H, SHARD_SPP,
+                                            mesh, max_depth=DEPTH,
+                                            return_stats=True)
+        frame = assemble_image(fb, mesh, W, H)
+        torch.cuda.synchronize()
+        out[shape] = dict(frame=frame, wall=time.perf_counter() - t0,
+                          launches=WB.wave_bounce.launches, iters=iters,
+                          segs=segs, collective_s=mesh.collective_s,
+                          collectives=mesh.collectives)
+    mesh = make_mesh(2, 1)
+    dev = mesh.device
+    scene, cam = build_final_scene(GW / GH, device=dev)
+    params, (s_scene, s_cam) = scene_camera_params(scene, cam)
+    step = make_train_step(s_scene, s_cam, GW, GH, GSPP, DEPTH, lr=TRAIN_LR,
+                           grad_filter=only_material_colors, mesh=mesh)
+    cfg = Q.render_grad_fb(GW, GH, GW * GH // mesh.n_tiles, GSPP,
+                           max_depth=DEPTH, device=dev).cfg
+    warm_mesh(mesh, dev)
+    WB.wave_bounce.launches = 0
+    t0 = time.perf_counter()
+    new, loss = step(perturb_colors(params),
+                     torch.from_numpy(target).to(dev),
+                     torch.arange(GW * GH, device=dev))
+    loss = float(loss)
+    out["train"] = dict(loss=loss, wall=time.perf_counter() - t0,
+                        params=[x.cpu().numpy() for x in P.leaves(new)],
+                        launches=WB.wave_bounce.launches,
+                        steps=(cfg["n_windows"] + cfg["n_windows_b"])
+                        * cfg["window"],
+                        collective_s=mesh.collective_s,
+                        collectives=mesh.collectives)
+    return out
+
+
+def phase_sharded(dev, frame: np.ndarray, first: dict) -> dict:
+    """12. Multi-device: (a) world size 1 on NCCL, phase 5's frame through
+    `render_sharded` on a 1x1 mesh, bit-equal to it; (b) two gloo ranks
+    on this card at (2x1) and (1x2), each assembled frame against one
+    `render_wq` within rtol 1e-5, atol 1e-6; (c) one train step on two
+    ranks at (2x1) against phase 9's first step (loss within 1e-5
+    relative, each param leaf within 1e-5 relative L2), both ranks' params
+    bit-equal; (d) `dryrun_multichip(2)`.  Returns K1's kernels-line row
+    for the sharded path: the launches of (a)-(c), the fifth full-width
+    launch of (a) kept and held bit-equal to the plain version."""
+    import torch.distributed as dist
+    from path_tracer_tpu_torch import dryrun
+    from path_tracer_tpu_torch.ops import wave_bounce as WB
+    from path_tracer_tpu_torch.parallel import launch
+    from path_tracer_tpu_torch.parallel.mesh import make_mesh, render_sharded
+    from path_tracer_tpu_torch.parallel.multihost import assemble_image
+    from path_tracer_tpu_torch.engine.wq import render_wq
+    from path_tracer_tpu_torch.scene.presets import build_final_scene
+
+    scene, cam = build_final_scene(W / H, device=dev)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{launch.free_port()}", world_size=1, rank=0)
+    try:
+        mesh = make_mesh(1, 1)
+        warm_mesh(mesh, dev)
+        WB.wave_bounce.launches = 0
+        with keep_launch() as kept:
+            t0 = time.perf_counter()
+            fb, segs, iters, _ = render_sharded(scene, cam, W, H, SPP, mesh,
+                                                max_depth=DEPTH,
+                                                return_stats=True)
+            img = assemble_image(fb, mesh, W, H)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+        launches_a = WB.wave_bounce.launches
+        backend = dist.get_backend(mesh.spp_group)
+    finally:
+        dist.destroy_process_group()
+    same = np.array_equal(img.view(np.uint32), frame.view(np.uint32))
+    log(f"[12] (a) world size 1 on {backend}, 1x1 mesh, {W}x{H}x{SPP} "
+        f"depth {DEPTH}: {dt:.3f} s, {segs / dt / 1e6:.3f} Mray/s, "
+        f"launches {launches_a} (iterations {iters}), collectives "
+        f"{mesh.collectives} in {mesh.collective_s * 1e3:.2f} ms; "
+        f"bit-equal to phase 5's frame: {same}")
+    if not same or launches_a != iters or backend != "nccl":
+        raise AssertionError("(a): the 1x1 NCCL frame differs from "
+                             "render_wq's, or the launches from the "
+                             "iterations")
+    row = check_kept("sharded (a)", kept, tag="12")
+
+    ref8 = render_wq(scene, cam, W, H, SHARD_SPP, max_depth=DEPTH,
+                     device=dev).cpu().numpy()
+    t0 = time.perf_counter()
+    ranks = launch.spawn(sharded_rank, 2, (first["target"],), device="cuda")
+    log(f"[12] (b, c) two ranks on one card over "
+        f"{launch.default_backend('cuda', 2)}: "
+        f"{time.perf_counter() - t0:.1f} s with their start")
+    frame_err = 0.0
+    for shape in ((2, 1), (1, 2)):
+        for r, res in enumerate(ranks):
+            x = res[shape]
+            err = float(np.abs(x["frame"] - ref8).max())
+            frame_err = max(frame_err, err)
+            log(f"[12] (b) {shape[0]}x{shape[1]} rank {r}: {W}x{H}x"
+                f"{SHARD_SPP} depth {DEPTH} in {x['wall']:.3f} s, "
+                f"{x['segs'] / x['wall'] / 1e6:.3f} Mray/s of its own "
+                f"segments; launches {x['launches']} (iterations "
+                f"{x['iters']}); collectives {x['collectives']} in "
+                f"{x['collective_s'] * 1e3:.2f} ms; max |frame - render_wq|"
+                f" {err:.3g}")
+            if x["launches"] != x["iters"] or x["launches"] == 0:
+                raise AssertionError(f"(b) {shape} rank {r}: launches "
+                                     f"{x['launches']}, iterations "
+                                     f"{x['iters']}")
+            np.testing.assert_allclose(x["frame"], ref8, rtol=1e-5,
+                                       atol=1e-6)
+    worst = 0.0
+    for r, res in enumerate(ranks):
+        t = res["train"]
+        for a, b in zip(t["params"], first["params"]):
+            a, b = a.astype(np.float64), b.astype(np.float64)
+            worst = max(worst, float(np.linalg.norm(a - b))
+                        / max(float(np.linalg.norm(b)), 1e-30))
+        log(f"[12] (c) 2x1 train step rank {r}: loss {t['loss']} (one "
+            f"device {first['loss']}), {t['wall']:.3f} s, launches "
+            f"{t['launches']} for {t['steps']} recorded steps, collectives "
+            f"{t['collectives']} in {t['collective_s'] * 1e3:.2f} ms")
+        if not abs(t["loss"] - first["loss"]) <= 1e-5 * first["loss"]:
+            raise AssertionError(f"(c) rank {r}: loss {t['loss']} vs "
+                                 f"{first['loss']}")
+        if t["launches"] != t["steps"]:
+            raise AssertionError(f"(c) rank {r}: the step launched the "
+                                 f"kernel {t['launches']} times, not "
+                                 f"{t['steps']}")
+    same = all(np.array_equal(a.view(np.uint32), b.view(np.uint32))
+               for a, b in zip(ranks[0]["train"]["params"],
+                               ranks[1]["train"]["params"]))
+    log(f"[12] (c) params: worst leaf relative L2 to the one-device step "
+        f"{worst:.3g}; the two ranks' params bit-equal: {same}")
+    if worst > 1e-5 or not same:
+        raise AssertionError("(c): the sharded step's params differ")
+
+    t0 = time.perf_counter()
+    d = dryrun.dryrun_multichip(2)
+    log(f"[12] (d) dryrun_multichip(2) in {time.perf_counter() - t0:.1f} s "
+        f"with its start: {json.dumps(d)}")
+
+    launches = launches_a + sum(res[s]["launches"] for res in ranks
+                                for s in ((2, 1), (1, 2))) + sum(
+        res["train"]["launches"] for res in ranks)
+    return dict(name="wave_bounce", path="sharded", route="cuda",
+                source="path_tracer_tpu_torch/ops/csrc/wave_bounce.cu",
+                replaces="path_tracer_tpu/ops/pallas/wave_bounce.py:536",
+                launches=launches,
+                max_abs_err=row["max_abs_err"], frame_err=frame_err,
+                ms=row["ms"], plain_ms=row["plain_ms"],
+                bound_ms=row["bound_ms"], bound_by=row["bound_by"],
+                library_ms=None, mray_s_1x1=segs / dt / 1e6,
+                launches_by_part=dict(
+                    a=launches_a,
+                    b=[res[s]["launches"] for res in ranks
+                       for s in ((2, 1), (1, 2))],
+                    c=[res["train"]["launches"] for res in ranks]))
 
 
 if __name__ == "__main__":

@@ -16,14 +16,22 @@ spike (`ops.spike_pmat`) has its own kernel, `ops/csrc/spike_pmat.cu`.
 The command line (`python -m path_tracer_tpu_torch render|info|bench`,
 `cli.py`) renders the five presets through `render_wq`, with checkpoints
 (`engine.checkpoint`) and a `torch.profiler` trace (`utils.profiling`).
+Across devices (`parallel`), one `torch.distributed` rank a device:
+`render_sharded` splits a frame's pixels and samples over a (tiles, spp)
+mesh of ranks (`make_mesh`, `global_mesh`), `assemble_image` gathers it,
+`make_train_step(mesh=...)` all-reduces the gradients, `bring_up` joins
+the group `torchrun` describes, and `dryrun.dryrun_multichip` checks it
+all on n ranks.
 """
 
 from .core.camera import Camera
 from .core.vec import Vec3
 from .scene.builder import SceneBuilder
 from .diff.queued_vjp import render_grad_fb
-from .parallel.mesh import make_train_step
+from .parallel.mesh import make_mesh, make_train_step, render_sharded
+from .parallel.multihost import assemble_image, bring_up, global_mesh
 
 __all__ = ["Camera", "Vec3", "SceneBuilder", "render_grad_fb",
-           "make_train_step"]
+           "make_train_step", "make_mesh", "render_sharded",
+           "assemble_image", "bring_up", "global_mesh"]
 __version__ = "0.2.0"

@@ -127,7 +127,9 @@ def _cmd_render(args) -> int:
 
     segments = None
     with profiling.trace(cfg.profile_dir):
-        with timer.phase("render"):
+        # the reference's phase name: summary() finds no "render" phase and
+        # so divides by the sum of every phase, the PNG write included
+        with timer.phase("compile+render"):
             if cfg.checkpoint_dir:
                 img = render_checkpointed(
                     scene, cam, cfg.width, cfg.height, cfg.spp,

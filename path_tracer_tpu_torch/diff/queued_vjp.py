@@ -342,6 +342,20 @@ def static_attr_rows(scene: T.Scene) -> int:
     return max(m, 1)
 
 
+def check_attr_rows(scene: T.Scene, attr_rows: Optional[int] = None) -> None:
+    """Raise ValueError when the scan-indexed table would hold fewer rows
+    than the scene's scan ids need: a too-small `attr_rows` hint, or a
+    scene past the `_MAX_SCAN` ids the win record carries.  The reference
+    sends such primitives to the drop row, and its replay then fetches
+    zeros for them without a word."""
+    need, have = static_attr_rows(scene), attr_table_rows(scene, attr_rows)
+    if have < need:
+        raise ValueError(
+            f"the attribute table holds {have} rows but the scene's scan ids "
+            f"need {need} (attr_rows={attr_rows}, at most {_MAX_SCAN} scan "
+            f"ids)")
+
+
 def build_attr_table(scene: T.Scene, attr_rows: Optional[int] = None):
     """Winner-attribute tables indexed by global scan id: the (R, 27) main
     table plus the (n_tri, 9) and (n_med, 12) side tables with their scan
@@ -726,6 +740,7 @@ def replay_fb(scene: T.Scene, cam: Camera, rec: RecQ, pix_base: int, *,
     product with the image cotangent is the render's backward.  Windows
     align with the recorder's (same `window`), so the two bank slots
     cannot overflow.  The path depth is pinned by the records."""
+    check_attr_rows(scene, attr_rows)
     dev = rec.a.win.device
     tab, tri_tab, tri_ids, med_tab, med_ids = build_attr_table(
         scene, attr_rows)
@@ -862,6 +877,7 @@ class RenderGradFb:
 
     def __call__(self, scene: T.Scene, cam: Camera, pix_base: int = 0,
                  samp_base: int = 0) -> torch.Tensor:
+        check_attr_rows(scene, self.attr_rows)
         params, static = partition((scene, cam))
         return _RenderGrad.apply(self, int(pix_base), int(samp_base), static,
                                  params, *leaves(params))

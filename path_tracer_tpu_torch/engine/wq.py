@@ -238,10 +238,15 @@ def wq_window_fb(scene: T.Scene, cam: Camera, width: int, height: int, *,
                  n_pix_loc: int, spp_loc: int, chunk: int, window: int,
                  max_depth: int, attenuate: bool, t_min: float,
                  tile_rows: int, seed: int, device: torch.device,
-                 samp_base: int = 0):
-    """Windowed work-queue core over pixels [0, n_pix_loc) and samples
-    [samp_base, samp_base+spp_loc) of each.  Returns
-    (fb_sum (n_pix_loc, 3) unnormalised, traced_segments, bounce_iters,
+                 pix_base: int = 0, samp_base: int = 0,
+                 valid_pix: Optional[int] = None,
+                 valid_cpp: Optional[int] = None):
+    """Windowed work-queue core over pixels [pix_base, pix_base+n_pix_loc)
+    and samples [samp_base, samp_base+spp_loc) of each: the whole frame, or
+    one shard of it (`parallel.mesh.render_sharded`).  A ragged shard
+    grants only its first `valid_pix` pixels and `valid_cpp` chunks of
+    each (default: all).  Returns (fb_sum (n_pix_loc, 3) unnormalised,
+    row i for pixel pix_base+i, traced_segments, bounce_iters,
     lane_steps); occupancy = traced_segments / lane_steps."""
     C = chunk
     cpp = spp_loc // C
@@ -250,7 +255,10 @@ def wq_window_fb(scene: T.Scene, cam: Camera, width: int, height: int, *,
     if n_pix_loc * spp_loc >= 2 ** 31:
         raise ValueError("sample ids must fit in int32")
     dev = device
-    n_chunks = n_pix_loc * cpp
+    valid_pix = n_pix_loc if valid_pix is None else int(valid_pix)
+    valid_cpp = cpp if valid_cpp is None else int(valid_cpp)
+    n_chunks = valid_pix * valid_cpp
+    vcpp = max(valid_cpp, 1)
     quantum = tile_rows * LANE
     rows = _round_up(min(n_pix_loc, n_pix_loc * spp_loc), quantum) // LANE
     sh = (rows, LANE)
@@ -284,8 +292,9 @@ def wq_window_fb(scene: T.Scene, cam: Camera, width: int, height: int, *,
         navail = n_chunks - counter
         grant = (elig.reshape(-1) & (rank < navail)).reshape(sh)
         cid = counter + rank.reshape(sh)
-        pix_new = torch.div(cid, cpp, rounding_mode="floor").to(f32)
-        s0 = float(samp_base) + ((cid % cpp) * C).to(f32)
+        pix_new = float(pix_base) + torch.div(
+            cid, vcpp, rounding_mode="floor").to(f32)
+        s0 = float(samp_base) + ((cid % vcpp) * C).to(f32)
 
         # the stream seed and camera ray of (pix_new, s0), for every lane
         pix_u = pix_new.reshape(-1).long()
@@ -344,7 +353,7 @@ def wq_window_fb(scene: T.Scene, cam: Camera, width: int, height: int, *,
             if granted < n_chunks:      # else every refill is a no-op
                 st, ex, counter = refill(st, ex, counter, fx)
             st, fx = step(st, fx, k)
-        ex, fb = deposit(ex, fb, n_pix_loc, cpp)
+        ex, fb = deposit(ex, fb, n_pix_loc, cpp, pix_base)
         wins += 1
         granted, live = torch.stack([counter, nlive(st, fx)]).tolist()
     iters = wins * window
@@ -353,7 +362,7 @@ def wq_window_fb(scene: T.Scene, cam: Camera, width: int, height: int, *,
     wrk_tot = 0.0
     for i, stiles in enumerate(stage_tiles):
         wrk_tot += float(st.wrk.sum(dtype=torch.float64))
-        fb = flush_acc(st, fb, n_pix_loc, cpp)
+        fb = flush_acc(st, fb, n_pix_loc, cpp, pix_base)
         st, fx = compact(st, fx, stiles * tile_rows)[:2]
         next_cap = caps[i + 1] if i + 1 < len(caps) else 0
         w2 = 0
@@ -367,7 +376,7 @@ def wq_window_fb(scene: T.Scene, cam: Camera, width: int, height: int, *,
         lane_steps += float(w2 * window * stiles * tile_rows * LANE)
 
     # residual flush: each lane's last chunk was never re-granted
-    fb = flush_acc(st, fb, n_pix_loc, cpp)
+    fb = flush_acc(st, fb, n_pix_loc, cpp, pix_base)
     segs = wrk_tot + float(st.wrk.sum(dtype=torch.float64))
     fb3 = fb[:3 * n_pix_loc].reshape(3, n_pix_loc).transpose(0, 1)
     return fb3, segs, iters, lane_steps

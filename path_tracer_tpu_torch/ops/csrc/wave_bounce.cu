@@ -49,7 +49,13 @@
 //     the start of the tile, which is what a latency-bound call needs;
 //   * the TPU layout workarounds (2-carry fold with lane-gather
 //     reconstruction, 16-way texture sweep, unrolled scans) are dropped;
-//     the win record, draw counts and per-segment snapshots are kept.
+//     the win record, draw counts and per-segment snapshots are kept;
+//   * the media count is a template parameter for 1..4 media, so their
+//     loops unroll and a lane's per-medium snapshots stay in registers.
+//     NMED = 0 instantiates the kernel for a count read at run time
+//     (5..MAX_MED): its media loops run to A.n_med over MAX_MED slots a
+//     lane (ptxas keeps them in registers: no stack frame), and a tile's
+//     sphere snapshots sit in dynamic shared memory behind the fold table.
 // Outputs go to separate buffers the wrapper allocates; nothing is updated
 // in place.
 
@@ -111,6 +117,24 @@ constexpr float INV255_F = (float)(1.0 / 255.0);
 constexpr float EPS4_F = (float)1e-4;
 constexpr float EPS7_F = (float)1e-7;
 constexpr unsigned int INITIAL_STATE = 2463534242u;
+
+// The most media the run-time instantiation (NMED = 0) takes.  Shared
+// memory sets it: a tile's sphere snapshots take 4 * BLOCK / K bytes a
+// medium (1 KB at K = 1) beside the fold table (up to 192 KB, the
+// wrapper's MAX_FOLD_BYTES) and ~11 KB of static buffers, and a block may
+// have 227 KB; 23 media fit beside the largest table.
+constexpr int MAX_MED = 23;
+
+// Media in the scene: the template's count, or A.n_med for NMED = 0.
+template <int NMED>
+__device__ __forceinline__ int media(int n_med) {
+  return NMED > 0 ? NMED : n_med;
+}
+// Per-lane media slots: one a medium, or MAX_MED for NMED = 0.
+template <int NMED>
+__host__ __device__ constexpr int med_slots() {
+  return NMED > 0 ? NMED : MAX_MED;
+}
 
 __device__ __forceinline__ float ld(const float* p) { return __ldg(p); }
 
@@ -292,19 +316,19 @@ __device__ __forceinline__ void fold_run(const float4* tab, int lo, int hi,
 // snap[m] is the running key after segment m.  The caller starts the
 // carry at (inf, 0).
 template <int NMED, int K>
-__device__ __forceinline__ void fold_share(const float4* tab, const int* segs,
-                                           int sub, const FoldRay& r,
-                                           float& bk, int& bidx,
-                                           float (&snap)[NMED]) {
+__device__ __forceinline__ void fold_share(
+    const float4* tab, const int* segs, const int nm, int sub,
+    const FoldRay& r, float& bk, int& bidx,
+    float (&snap)[med_slots<NMED>()]) {
   int start = 0, moved = 0;  // moving spheres before the segment
 #pragma unroll
-  for (int m = 0; m <= NMED; ++m) {
+  for (int m = 0; m <= nm; ++m) {
     const int static_end = __ldg(&segs[2 * m]), end = __ldg(&segs[2 * m + 1]);
     fold_run<K, false>(tab, start + sub, static_end, 2 * moved, r, bk, bidx);
     fold_run<K, true>(tab, static_end + sub, end, 2 * (moved - static_end),
                       r, bk, bidx);
     moved += end - static_end;
-    if (m < NMED) snap[m] = bk;
+    if (m < nm) snap[m] = bk;
     start = end;
   }
 }
@@ -316,8 +340,8 @@ __device__ __forceinline__ void fold_share(const float4* tab, const int* segs,
 // enters either.  Each snapshot is the least partial key, the prefix of
 // the fold up to its segment.
 template <int NMED, int K>
-__device__ __forceinline__ void reduce_split(float& bk, int& bidx,
-                                             float (&snap)[NMED]) {
+__device__ __forceinline__ void reduce_split(
+    const int nm, float& bk, int& bidx, float (&snap)[med_slots<NMED>()]) {
 #pragma unroll
   for (int off = 1; off < K; off <<= 1) {
     const float ok = __shfl_xor_sync(0xffffffffu, bk, off);
@@ -327,7 +351,7 @@ __device__ __forceinline__ void reduce_split(float& bk, int& bidx,
       bidx = oi;
     }
 #pragma unroll
-    for (int m = 0; m < NMED; ++m)
+    for (int m = 0; m < nm; ++m)
       snap[m] = fminf(snap[m], __shfl_xor_sync(0xffffffffu, snap[m], off));
   }
 }
@@ -339,8 +363,9 @@ __device__ __forceinline__ void advance(const WaveArgs& A, float ox, float oy,
                                         float oz, float dx, float dy,
                                         float dz, float tm, unsigned int rng,
                                         const float bk, const int bidx,
-                                        const float (&sph_snap)[NMED],
+                                        const float (&sph_snap)[med_slots<NMED>()],
                                         Adv& o) {
+  const int nm = media<NMED>(A.n_med);
   const float tmin_ = A.t_min;
   const float a = dx * dx + dy * dy + dz * dz;
   const float a_safe = a == 0.f ? 1.f : a;
@@ -363,10 +388,10 @@ __device__ __forceinline__ void advance(const WaveArgs& A, float ox, float oy,
   const float* R = A.rect;
   float rt = INF, ru = 0.f, rv = 0.f, rmeta = 0.f, rpar = 0.f, rar = 0.f,
         rag = 0.f, rab = 0.f, rxy = 0.f, rxz = 0.f;
-  float rect_snap[NMED];
+  float rect_snap[med_slots<NMED>()];
   int start = 0;
 #pragma unroll
-  for (int m = 0; m <= NMED; ++m) {
+  for (int m = 0; m <= nm; ++m) {
     const int end = __ldg(&A.rect_segs[m]);
     for (int j = start; j < end; ++j) {
       const float isxy = ld(&R[0 * pr + j]), isxz = ld(&R[1 * pr + j]);
@@ -398,7 +423,7 @@ __device__ __forceinline__ void advance(const WaveArgs& A, float ox, float oy,
         rxz = isxz;
       }
     }
-    if (m < NMED) rect_snap[m] = rt;
+    if (m < nm) rect_snap[m] = rt;
     start = end;
   }
 
@@ -407,10 +432,10 @@ __device__ __forceinline__ void advance(const WaveArgs& A, float ox, float oy,
   const float* Tb = A.tri;
   float tt = INF, tmeta = 0.f, tpar = 0.f, tnx = 0.f, tny = 0.f, tnz = 0.f,
         tar = 0.f, tag = 0.f, tab = 0.f;
-  float tri_snap[NMED];
+  float tri_snap[med_slots<NMED>()];
   start = 0;
 #pragma unroll
-  for (int m = 0; m <= NMED; ++m) {
+  for (int m = 0; m <= nm; ++m) {
     const int end = __ldg(&A.tri_segs[m]);
     for (int j = start; j < end; ++j) {
       const float v0x = ld(&Tb[0 * pt + j]), v0y = ld(&Tb[1 * pt + j]),
@@ -446,7 +471,7 @@ __device__ __forceinline__ void advance(const WaveArgs& A, float ox, float oy,
         tab = ld(&Tb[16 * pt + j]);
       }
     }
-    if (m < NMED) tri_snap[m] = tt;
+    if (m < nm) tri_snap[m] = tt;
     start = end;
   }
 
@@ -467,9 +492,9 @@ __device__ __forceinline__ void advance(const WaveArgs& A, float ox, float oy,
   const float ray_len = sqrtf(a);
   const float inv_len = ray_len * inv_a;
 #pragma unroll
-  for (int m = 0; m < NMED; ++m) {
+  for (int m = 0; m < nm; ++m) {
     const float* M = A.med + m;
-#define MD(r) ld(&M[(r) * NMED])
+#define MD(r) ld(&M[(r) * nm])
     const float mcx = MD(1), mcy = MD(2), mcz = MD(3), mr = MD(4);
     const float ocx = ox - mcx, ocy = oy - mcy, ocz = oz - mcz;
     const float b = ocx * dx + ocy * dy + ocz * dz;
@@ -709,7 +734,7 @@ template <int NMED>
 __device__ __forceinline__ void lane_bounce(const WaveArgs& A, const int i,
                                             const LaneIn& L,
                                             const float bk, const int bidx,
-                                            const float (&snap)[NMED]) {
+                                            const float (&snap)[med_slots<NMED>()]) {
 #define IN(p) L.f[p]
   const float ox = IN(OX), oy = IN(OY), oz = IN(OZ);
   const float dx = IN(DX), dy = IN(DY), dz = IN(DZ), tm = IN(TM);
@@ -920,14 +945,21 @@ template <int NMED, int K>
 __global__ void __launch_bounds__(BLOCK, K == 1 ? 4 : 3)
     wave_kernel(const WaveArgs A, const int span) {
   constexpr int TILE = BLOCK / K;
+  constexpr int SLOTS = med_slots<NMED>();
   constexpr bool EARLY = K > 1;  // the lane's inputs read before the fold
-  extern __shared__ __align__(16) float4 s_tab[];  // the fold table
+  const int nm = media<NMED>(A.n_med);
+  // the fold table, then (NMED = 0) the sphere snapshots
+  extern __shared__ __align__(16) float4 s_tab[];
   __shared__ float s_ray[9][TILE];  // o, d, tm, a, t_min*a of the advancing
   __shared__ float s_bk[TILE];      // the fold's result, per dense entry
   __shared__ int s_bidx[TILE];
-  __shared__ float s_snap[NMED][TILE];
+  __shared__ float s_snap[NMED > 0 ? NMED : 1][NMED > 0 ? TILE : 1];
   __shared__ int s_count[2][WARPS];  // by tile parity: no sync to reuse it
   __shared__ __align__(8) unsigned long long s_bar;
+  // the sphere snapshot of medium m for dense entry e: snap_sh[m * TILE + e]
+  float* const snap_sh = NMED > 0
+                             ? &s_snap[0][0]
+                             : reinterpret_cast<float*>(s_tab + A.fold_recs);
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const unsigned bar = smem_u32(&s_bar);
@@ -992,21 +1024,21 @@ __global__ void __launch_bounds__(BLOCK, K == 1 ? 4 : 3)
         const int e = tid / K, sub = tid % K;
         float bk = INF;
         int bidx = 0;
-        float snap[NMED];
+        float snap[SLOTS];
 #pragma unroll
-        for (int m = 0; m < NMED; ++m) snap[m] = INF;
+        for (int m = 0; m < nm; ++m) snap[m] = INF;
         if (e < n_adv) {
           const FoldRay r{s_ray[0][e], s_ray[1][e], s_ray[2][e],
                           s_ray[3][e], s_ray[4][e], s_ray[5][e],
                           s_ray[6][e], s_ray[7][e], s_ray[8][e]};
-          fold_share<NMED, K>(s_tab, A.sph_segs, sub, r, bk, bidx, snap);
+          fold_share<NMED, K>(s_tab, A.sph_segs, nm, sub, r, bk, bidx, snap);
         }
-        if (K > 1) reduce_split<NMED, K>(bk, bidx, snap);
+        if (K > 1) reduce_split<NMED, K>(nm, bk, bidx, snap);
         if (e < n_adv && sub == 0) {
           s_bk[e] = bk;
           s_bidx[e] = bidx;
 #pragma unroll
-          for (int m = 0; m < NMED; ++m) s_snap[m][e] = snap[m];
+          for (int m = 0; m < nm; ++m) snap_sh[m * TILE + e] = snap[m];
         }
       }
       __syncthreads();
@@ -1014,15 +1046,15 @@ __global__ void __launch_bounds__(BLOCK, K == 1 ? 4 : 3)
 
     // ---- the rest, one thread a lane ------------------------------------
     if (mine) {
-      float bk = INF, snap[NMED];
+      float bk = INF, snap[SLOTS];
       int bidx = 0;
 #pragma unroll
-      for (int m = 0; m < NMED; ++m) snap[m] = INF;
+      for (int m = 0; m < nm; ++m) snap[m] = INF;
       if (pos >= 0) {
         bk = s_bk[pos];
         bidx = s_bidx[pos];
 #pragma unroll
-        for (int m = 0; m < NMED; ++m) snap[m] = s_snap[m][pos];
+        for (int m = 0; m < nm; ++m) snap[m] = snap_sh[m * TILE + pos];
       }
       if (!EARLY) load_lane(A, i, in);
       lane_bounce<NMED>(A, i, in, bk, bidx, snap);
@@ -1037,7 +1069,8 @@ __global__ void __launch_bounds__(BLOCK, K == 1 ? 4 : 3)
 template <int NMED, int K>
 cudaError_t run(const WaveArgs& a, cudaStream_t stream, int* per_sm) {
   const auto kern = wave_kernel<NMED, K>;
-  const int smem = a.fold_recs * 16;
+  const int smem =
+      a.fold_recs * 16 + (NMED > 0 ? 0 : a.n_med * (BLOCK / K) * 4);
   cudaError_t err;
   if (smem > 48 * 1024 &&
       (err = cudaFuncSetAttribute(
@@ -1089,15 +1122,18 @@ cudaError_t run_any(const WaveArgs& a, cudaStream_t stream, int* per_sm) {
     case 2: return run_split<2>(a, stream, per_sm);
     case 3: return run_split<3>(a, stream, per_sm);
     case 4: return run_split<4>(a, stream, per_sm);
-    default: return cudaErrorInvalidValue;
+    default:
+      return a.n_med > 4 && a.n_med <= MAX_MED
+                 ? run_split<0>(a, stream, per_sm)
+                 : cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
 // Launch one bounce on `stream`; returns cudaGetLastError() after the
-// launch (0 = launched).  Media counts 1..4 and K = 1, 2, 4, ..., 32 are
-// instantiated.
+// launch (0 = launched).  Media counts 1..4, the run-time count (5..MAX_MED)
+// and K = 1, 2, 4, ..., 32 are instantiated.
 extern "C" int wave_bounce_launch(const WaveArgs* a, void* stream) {
   if (a->n_lanes <= 0) return 0;
   return (int)run_any(*a, static_cast<cudaStream_t>(stream), nullptr);

@@ -5,7 +5,8 @@ numpy seed, with every case the kernel's policy branches on: live and
 dead lanes, lanes that regenerate within their chunk, pending ALBEDO and
 EMIT image-texture fixups, and lanes whose pending fixup the texel service
 does not cover (they stall).  `tie_scene` is a scene made for equal
-sphere keys across media segments.  `agreement` compares two bounce
+sphere keys across media segments, and `media_scene` one with more media
+than the kernel has templated instantiations for.  `agreement` compares two bounce
 outputs plane by plane.  The tests use them against the reference
 package on the CPU; `chip_smoke.py` and the card tests use them for the
 kernel against its plain version on the card.
@@ -129,6 +130,35 @@ def tie_scene(aspect: float, device="cuda") -> Tuple[Scene, Camera]:
         sb.add_sphere(c, r, mats[4])
     cam = Camera.create((0.0, 3.0, 6.0), (0.0, 0.5, 0.0), (0.0, 1.0, 0.0),
                         35.0, aspect, 0.0, 6.5, 0.0, 1.0)
+    return sb.build(device=resolve_device(device)), cam
+
+
+# smoke volumes media_scene adds, in turn: (boundary, density, albedo)
+_SMOKE = [(("sphere", (2.0, 0.6, 1.2), 0.6), 0.3, (0.9, 0.8, 0.7)),
+          (("box", (5.5, 0.0, -1.0), (6.5, 1.2, 0.0)), 0.5, (0.6, 0.7, 0.9)),
+          (("sphere", (-2.0, 0.8, 2.0), 0.8), 0.2, (0.9, 0.9, 0.9)),
+          (("box", (7.5, 0.0, 1.5), (8.5, 0.8, 2.5)), 0.8, (0.8, 0.9, 0.6)),
+          (("sphere", (1.0, 0.5, -3.0), 0.5), 1.0, (0.7, 0.7, 0.7))]
+
+
+def media_scene(aspect: float, n_media: int = 6, device="cuda"
+                ) -> Tuple[Scene, Camera]:
+    """The final scene (whose smoke ball comes last) with n_media - 1 more
+    smoke volumes, sphere and box boundaries in turn, all in view.  A
+    static and a moving sphere follow each medium, so that every media
+    segment of the sphere fold after the final scene's own holds spheres
+    of both kinds: past the 4 media counts the kernel is templated for."""
+    from ..scene.presets import final_scene_builder
+    sb, cam = final_scene_builder(aspect)
+    for i in range(n_media):
+        x, z = 3.0 - 1.5 * i, 3.5 - 0.5 * i
+        sb.add_sphere((x, 0.3, z), 0.3, sb.metal((0.8, 0.8, 0.8), 0.1 * i))
+        sb.add_moving_sphere((x + 0.7, 0.25, z), (x + 0.7, 0.55, z), 0.0,
+                             1.0, 0.25, sb.lambertian((0.2, 0.3 + 0.1 * i,
+                                                       0.5)))
+        if i < n_media - 1:
+            boundary, density, albedo = _SMOKE[i % len(_SMOKE)]
+            sb.add_constant_medium(boundary, density, albedo)
     return sb.build(device=resolve_device(device)), cam
 
 

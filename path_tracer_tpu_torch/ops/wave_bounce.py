@@ -33,7 +33,7 @@ __all__ = ["FIX_ALBEDO", "FIX_EMIT", "FIX_NONE", "LANE", "SceneTables",
            "zero_fix", "wave_bounce", "wave_bounce_plain"]
 
 DEF_TILE_ROWS = 64     # lane-count quantum on the card: rows % 64 == 0
-MAX_MED = 4            # media the CUDA kernel is instantiated for
+MAX_MED = 23           # media the CUDA kernel takes (csrc: MAX_MED)
 SPLITS = (1, 2, 4, 8, 16, 32)   # threads a lane's sphere fold can take
 MAX_FOLD_BYTES = 192 * 1024     # the fold table is staged in shared memory
 
@@ -389,8 +389,11 @@ def _launch(tables: SceneTables, st: WaveState, fix: FixState,
     f32 = torch.float32
     n_med = tables.med.shape[1]
     if not 1 <= n_med <= MAX_MED:
-        raise ValueError(f"wave_bounce: the kernel takes 1..{MAX_MED} media "
-                         f"slots, the scene packs {n_med}")
+        raise ValueError(
+            f"wave_bounce: the kernel takes 1..{MAX_MED} media slots, the "
+            f"scene packs {n_med}: above 4 media a tile's sphere snapshots "
+            f"take 1 KB of shared memory a medium, beside a fold table of "
+            f"up to {MAX_FOLD_BYTES // 1024} KB")
     a = _Args()
     for name, rows_ in (("sph", 15), ("rect", 15), ("tri", 17), ("med", 17)):
         t = getattr(tables, name)

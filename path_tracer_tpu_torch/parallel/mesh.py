@@ -1,31 +1,213 @@
-"""The differentiable training step (inverse rendering), on one device.
+"""Multi-device execution on `torch.distributed`: the (tiles, spp) mesh,
+the sharded forward render and the distributed SGD step of inverse
+rendering.
 
-Mirrors `make_train_step` and `scene_camera_params` of the reference
-package's `parallel/mesh.py` on a 1x1 (tiles, spp) mesh: one process
-renders every pixel of the frame with the record-and-replay gradient
-route (`diff.queued_vjp.render_grad_fb`), takes the loss of the
-reference's `local_loss`, filters the gradients and applies SGD.  The
-all-reduce of gradients over tiles and samples across devices, the
-silhouette terms (`geometry_edge`) and the jnp backend are not ported
-yet.
+Mirrors the reference package's `parallel/mesh.py`, whose scaling design
+it keeps: pixels are split over the "tiles" axis and samples over the
+"spp" axis of a grid of ranks, one process a device.  The scene is small
+and every rank holds all of it.  Sample partial sums are summed over the
+spp axis; the frame needs no communication until it is assembled
+(`parallel.multihost.assemble_image`).  For inverse rendering the loss and
+the parameter gradients are summed over tiles and averaged over spp, the
+gradient all-reduce.  Where the reference's `shard_map` body runs once a
+device, here each rank runs its own shard and the collectives are
+explicit.
+
+Without a process group the mesh is 1x1 and every reduction is a no-op,
+so the same code runs in one process.  Not ported yet, since they need the
+jnp oracle engine: the reference's jnp renderer (`renderer="jnp"`, ROADMAP
+Queue 1 item 2), and the train step's "jnp" backend and silhouette terms
+(`backend`, `geometry_edge`, Queue 1 item 3).  The port renders with the
+work queue and differentiates by record and replay only.
 """
 from __future__ import annotations
 
+import os
+import time
+from dataclasses import dataclass
 from typing import Callable, Dict, Optional, Tuple, Union
 
 import torch
+import torch.distributed as dist
 
 from ..core.camera import Camera
+from ..core.device import resolve_device
 from ..core.vec import fdiv
 from ..diff.params import combine, leaves, partition, tree_map, with_leaves
 from ..diff.queued_vjp import render_grad_fb
+from ..engine.wq import (DEF_TILE_ROWS, DEF_WINDOW, CPU_TILE_ROWS,
+                         CPU_WINDOW, MAX_CHUNK, pick_chunk, wq_window_fb)
 from ..scene import types as T
 
+AXES = ("tiles", "spp")
+
+
+@dataclass
+class Mesh:
+    """This rank's place on a (tiles, spp) grid of ranks, spp the faster
+    axis (rank r of the grid has tile r // n_spp and spp r % n_spp), its
+    device, and one process group an axis (None without a process group).
+    `collective_s` and `collectives` count the wall time (device work
+    before it finished first) and the number of the reductions and
+    gathers the mesh ran."""
+    n_tiles: int
+    n_spp: int
+    tile: int
+    spp: int
+    device: torch.device
+    tiles_group: Optional[dist.ProcessGroup] = None
+    spp_group: Optional[dist.ProcessGroup] = None
+    collective_s: float = 0.0
+    collectives: int = 0
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        return {"tiles": self.n_tiles, "spp": self.n_spp}
+
+    def group(self, axis: str) -> Optional[dist.ProcessGroup]:
+        if axis not in AXES:
+            raise ValueError(f"no mesh axis {axis!r}; the axes are {AXES}")
+        return self.tiles_group if axis == "tiles" else self.spp_group
+
+    def collective(self, fn: Callable, t: torch.Tensor):
+        """fn() timed into `collective_s`; the device finishes the work
+        queued before it first, so only the collective is counted."""
+        if t.is_cuda:
+            torch.cuda.synchronize(t.device)
+        t0 = time.perf_counter()
+        out = fn()
+        if t.is_cuda:
+            torch.cuda.synchronize(t.device)
+        self.collective_s += time.perf_counter() - t0
+        self.collectives += 1
+        return out
+
+    def psum(self, t: torch.Tensor, axis: str) -> torch.Tensor:
+        """t summed over the ranks of `axis`, in place (t itself without a
+        process group)."""
+        group = self.group(axis)
+        if group is not None:
+            self.collective(lambda: dist.all_reduce(t, group=group), t)
+        return t
+
+
+def rank_device(device: Union[None, str, torch.device] = None
+                ) -> torch.device:
+    """The device of this rank: `device` if given, else
+    cuda:{LOCAL_RANK % device_count} (raises without CUDA)."""
+    if device is not None:
+        return resolve_device(device)
+    resolve_device("cuda")
+    local = int(os.environ.get("LOCAL_RANK", "0"))
+    return torch.device("cuda", local % torch.cuda.device_count())
+
+
+def make_mesh(n_tiles: Optional[int] = None, n_spp: int = 1,
+              group: Optional[dist.ProcessGroup] = None,
+              device: Union[None, str, torch.device] = None) -> Mesh:
+    """The (tiles, spp) mesh over the ranks of `group` (default: every
+    rank), n_tiles = ranks // n_spp unless given; the grid must cover
+    them.  Every rank of the default group calls it, since each axis group
+    is made with `dist.new_group`, which all of them call for every group.
+    Without a process group it is the 1x1 mesh."""
+    dev = rank_device(device)
+    if not dist.is_initialized():
+        if (n_tiles or 1) * n_spp != 1:
+            raise ValueError(f"a {n_tiles}x{n_spp} mesh needs a process "
+                             f"group; without one the mesh is 1x1")
+        return Mesh(1, 1, 0, 0, dev)
+    ranks = (list(range(dist.get_world_size())) if group is None
+             else dist.get_process_group_ranks(group))
+    if n_tiles is None:
+        n_tiles = len(ranks) // n_spp
+    if n_tiles < 1 or n_tiles * n_spp != len(ranks):
+        raise ValueError(f"a {n_tiles}x{n_spp} mesh does not cover the "
+                         f"group's {len(ranks)} ranks")
+    me = dist.get_rank()
+    tiles_group = spp_group = None
+    for s in range(n_spp):
+        g = dist.new_group([ranks[t * n_spp + s] for t in range(n_tiles)])
+        tiles_group = g if me in ranks[s::n_spp] else tiles_group
+    for t in range(n_tiles):
+        members = ranks[t * n_spp:(t + 1) * n_spp]
+        g = dist.new_group(members)
+        spp_group = g if me in members else spp_group
+    if me not in ranks:
+        raise ValueError(f"rank {me} is not in the mesh's group")
+    i = ranks.index(me)
+    return Mesh(n_tiles, n_spp, i // n_spp, i % n_spp, dev, tiles_group,
+                spp_group)
+
+
+# ---------------------------------------------------------------------------
+# Sharded forward render
+# ---------------------------------------------------------------------------
+
+def _ceil_div(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def shard_plan(width: int, height: int, spp: int, n_tiles: int, n_spp: int,
+               tile: int, spp_idx: int) -> Dict[str, int]:
+    """The work-queue arguments of the shard (tile, spp_idx), as the
+    reference's "wq" renderer sets them (`mesh.py:88-108`): the chunk is
+    capped so the spp axis carries at least one chunk a shard, pixels pad
+    up to the tiles axis and trailing sample chunks mask off, so any
+    (width, height, spp) works."""
+    n_pix = width * height
+    chunk = pick_chunk(spp, cap=min(MAX_CHUNK, max(1, spp // n_spp)))
+    cpp = spp // chunk
+    cpp_loc = _ceil_div(cpp, n_spp)
+    n_pix_loc = _ceil_div(n_pix, n_tiles)
+    pix_base = tile * n_pix_loc
+    return dict(chunk=chunk, spp_loc=cpp_loc * chunk, n_pix_loc=n_pix_loc,
+                pix_base=pix_base, samp_base=spp_idx * cpp_loc * chunk,
+                valid_pix=min(max(n_pix - pix_base, 0), n_pix_loc),
+                valid_cpp=min(max(cpp - spp_idx * cpp_loc, 0), cpp_loc))
+
+
+def render_sharded(scene: T.Scene, cam: Camera, width: int, height: int,
+                   spp: int, mesh: Mesh, max_depth: int = 50,
+                   attenuate_emission: bool = False, t_min: float = 1e-3,
+                   seed: int = 0, tile_rows: Optional[int] = None,
+                   window: Optional[int] = None,
+                   return_stats: bool = False):
+    """Forward render over the mesh: this rank renders its tile's pixels
+    over its share of the samples (`engine.wq.wq_window_fb`), the partial
+    sums are summed over the spp axis and divided by spp.  Returns this
+    rank's tile of the frame, (n_pix_loc, 3), row i for pixel
+    tile * n_pix_loc + i (rows past the frame are zero); with
+    `return_stats` also this rank's (traced_segments, bounce_iters,
+    lane_steps).  `parallel.multihost.assemble_image` puts the tiles
+    together.  The reference's "wq" renderer; its "jnp" one is not ported."""
+    dev = mesh.device
+    cuda = dev.type == "cuda"
+    tile_rows = tile_rows or (DEF_TILE_ROWS if cuda else CPU_TILE_ROWS)
+    window = window or (DEF_WINDOW if cuda else CPU_WINDOW)
+    plan = shard_plan(width, height, spp, mesh.n_tiles, mesh.n_spp,
+                      mesh.tile, mesh.spp)
+    fb, segs, iters, lane_steps = wq_window_fb(
+        scene, cam, width, height, n_pix_loc=plan["n_pix_loc"],
+        spp_loc=plan["spp_loc"], chunk=plan["chunk"], window=window,
+        max_depth=max_depth, attenuate=attenuate_emission, t_min=t_min,
+        tile_rows=tile_rows, seed=seed, device=dev,
+        pix_base=plan["pix_base"], samp_base=plan["samp_base"],
+        valid_pix=plan["valid_pix"], valid_cpp=plan["valid_cpp"])
+    fb = fdiv(mesh.psum(fb.contiguous(), "spp"), float(spp))
+    if return_stats:
+        return fb, segs, iters, lane_steps
+    return fb
+
+
+# ---------------------------------------------------------------------------
+# Distributed differentiable training step (inverse rendering)
+# ---------------------------------------------------------------------------
 
 def make_train_step(static_scene, static_cam_tree, width: int, height: int,
                     local_spp: int, max_depth: int, lr: float = 0.05,
                     grad_filter: Optional[Callable] = None,
-                    device: Union[str, torch.device] = "cuda"):
+                    device: Union[str, torch.device] = "cuda",
+                    mesh: Optional[Mesh] = None):
     """Build an SGD step for inverse rendering: step(params, target,
     pix_ids) -> (params', loss).
 
@@ -33,10 +215,21 @@ def make_train_step(static_scene, static_cam_tree, width: int, height: int,
     (`scene_camera_params`); target: the (npx, 3) image of the pixels
     `pix_ids`, which must be a contiguous range (the canonical arange);
     loss = sum((img - target)^2) / (W*H*3), the reference's mean over the
-    global pixel population.  `grad_filter` maps the gradient tree (None
-    at static leaves) before the update p - lr*g.  The gradients come
-    from the record-and-replay route, the reference's "pallas" backend;
-    its "jnp" backend is not ported."""
+    global pixel population.  The gradients come from the record-and-replay
+    route (`diff.queued_vjp.render_grad_fb`), the reference's "pallas"
+    backend.
+
+    Without a mesh the step runs on `device`, every pixel in one process.
+    With one it runs on the mesh's device: each rank takes its tile's
+    contiguous slice of pix_ids and target (npx must divide by the tiles
+    axis, as under the reference's shard_map) and samples [spp *
+    local_spp, (spp + 1) * local_spp) of them; the loss and the gradients
+    are summed over tiles and averaged over spp before `grad_filter` (which
+    maps the gradient tree, None at static leaves) and the update p -
+    lr*g, so every rank ends with the same params.  The reference's "jnp"
+    backend and `geometry_edge` are not ported."""
+    if mesh is not None:
+        device = mesh.device
     grad_f_cache: Dict[int, object] = {}
 
     def get_grad_f(npx: int):
@@ -48,20 +241,44 @@ def make_train_step(static_scene, static_cam_tree, width: int, height: int,
 
     def step(params, target: torch.Tensor, pix_ids: torch.Tensor
              ) -> Tuple[object, torch.Tensor]:
+        samp_base = 0
+        if mesh is not None:
+            n = pix_ids.shape[0]
+            if n % mesh.n_tiles:
+                raise ValueError(f"{n} pixels do not split evenly over "
+                                 f"{mesh.n_tiles} tiles")
+            sl = slice(mesh.tile * (n // mesh.n_tiles),
+                       (mesh.tile + 1) * (n // mesh.n_tiles))
+            pix_ids, target = pix_ids[sl], target[sl]
+            samp_base = mesh.spp * local_spp
         xs = [p.detach().requires_grad_(True) for p in leaves(params)]
         scene_, cam_ = combine(with_leaves(params, xs),
                                (static_scene, static_cam_tree))
         npx = pix_ids.shape[0]
-        img = get_grad_f(npx)(scene_, cam_, int(pix_ids[0]), 0)
+        img = get_grad_f(npx)(scene_, cam_, int(pix_ids[0]), samp_base)
         err = img - target
         loss = fdiv((err * err).sum(), float(width * height * 3))
         gs = torch.autograd.grad(loss, xs)
+        loss = loss.detach()
+        if mesh is not None:
+            # tiles sum partial pixel populations; spp averages independent
+            # Monte-Carlo estimates of the same gradient: one flat buffer on
+            # the mesh's device (the camera's leaves live on the CPU), one
+            # reduction an axis
+            flat = torch.cat([loss.reshape(1).to(device)]
+                             + [g.reshape(-1).to(device) for g in gs])
+            flat = fdiv(mesh.psum(mesh.psum(flat, "tiles"), "spp"),
+                        float(mesh.n_spp))
+            loss = flat[0]
+            sizes = [g.numel() for g in gs]
+            gs = [part.reshape(g.shape).to(g.device) for part, g in zip(
+                torch.split(flat[1:], sizes), gs)]
         grads = with_leaves(params, list(gs))
         if grad_filter is not None:
             grads = grad_filter(grads)
         new = tree_map(lambda p, g: None if p is None else p.detach() - lr * g,
                        params, grads)
-        return new, loss.detach()
+        return new, loss
 
     return step
 

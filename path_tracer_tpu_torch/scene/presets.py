@@ -189,6 +189,12 @@ TEXTURED_MOTION = Preset("textured_motion", 600, 400, 200, 50,
 
 def build_final_scene(aspect: float, device: Device = "cuda"
                       ) -> Tuple[Scene, Camera]:
+    sb, cam = final_scene_builder(aspect)
+    return sb.build(device=device), cam
+
+
+def final_scene_builder(aspect: float) -> Tuple[SceneBuilder, Camera]:
+    """The final scene's builder before packing, and its camera."""
     sb = SceneBuilder()
     # checkered ground (main.cpp:70-73); main.cpp:74's second checker is
     # never used by a hittable and is skipped
@@ -256,7 +262,7 @@ def build_final_scene(aspect: float, device: Device = "cuda"
     sb.add_constant_medium(("sphere", (5, 1, 3.5), 1.0), 1.0, (1.0, 1.0, 1.0))
 
     cam = _camera((13, 3, 3), (0, -1, 0), 40.0, aspect, 0.04, t0=0.0, t1=1.0)
-    return sb.build(device=device), cam
+    return sb, cam
 
 
 def _build_final(device: Device = "cuda") -> Tuple[Scene, Camera]:

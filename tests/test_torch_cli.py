@@ -21,6 +21,7 @@ from path_tracer_tpu.engine import wq as JWQ
 from path_tracer_tpu.scene.presets import CORNELL_BOX
 from path_tracer_tpu_torch import cli
 from path_tracer_tpu_torch.engine import wq as TWQ
+from path_tracer_tpu_torch.utils import profiling
 from path_tracer_tpu_torch.utils.image import dump_ppm, tonemap
 
 W, H, SPP, DEPTH = 16, 16, 4, 6
@@ -49,6 +50,14 @@ def cli_render(tmp_path_factory):
         return out
 
     mp.setattr(cli, "render_wq", spy)
+    timers = []
+
+    class KeptTimer(profiling.PhaseTimer):
+        def __init__(self):
+            super().__init__()
+            timers.append(self)
+
+    mp.setattr(cli.profiling, "PhaseTimer", KeptTimer)
     png = str(tmp_path_factory.mktemp("cli") / "cornell.png")
     buf = io.StringIO()
     try:
@@ -62,7 +71,7 @@ def cli_render(tmp_path_factory):
     assert len(seen) == 1
     img, segs, iters, _ = seen[0]
     return dict(rc=rc, png=png, out=buf.getvalue(), img=img.numpy(),
-                segs=segs, iters=iters)
+                segs=segs, iters=iters, timer=timers[0])
 
 
 def test_cli_render_exits_zero_and_writes_the_tonemapped_png(cli_render):
@@ -88,7 +97,11 @@ def test_cli_render_metrics_and_ppm(cli_render):
     m = json.loads(metrics)
     assert m["mray_per_s"] > 0
     assert m["avg_path_len"] == round(cli_render["segs"] / (W * H * SPP), 3)
-    assert set(m["phases_s"]) == {"render", "write"}
+    # the reference's phases, and its rate over their sum (write included)
+    assert set(m["phases_s"]) == {"compile+render", "write"}
+    phases = cli_render["timer"].phases
+    assert m["mray_per_s"] == round(
+        cli_render["segs"] / sum(phases.values()) / 1e6, 3)
     assert "\n".join(ppm) + "\n" == dump_ppm(cli_render["img"])
 
 

@@ -113,6 +113,26 @@ def test_attr_rows_hint_is_value_neutral(grads):
                                    atol=1e-7)
 
 
+def test_a_too_small_attr_rows_hint_raises(grads, monkeypatch):
+    """Where the reference drops the primitives past the hint (or past
+    `_MAX_SCAN` scan ids) silently, the port raises, in the forward and
+    in the replay."""
+    scene, cam = grads["scene"], grads["cam"]
+    small = TQ.static_attr_rows(scene) - TQ.LANE
+    assert TQ.attr_table_rows(scene, small) < TQ.static_attr_rows(scene)
+    f = TQ.render_grad_fb(16, 12, 16 * 12, 2, max_depth=4, attr_rows=small,
+                          device="cpu")
+    with pytest.raises(ValueError, match="attribute table holds"):
+        f(scene, cam)
+    with pytest.raises(ValueError, match="attribute table holds"):
+        TQ.replay_fb(scene, cam, None, 0, width=16, height=12, npx=192,
+                     attenuate=True, t_min=1e-3, seed=0, window=4,
+                     attr_rows=small)
+    monkeypatch.setattr(TQ, "_MAX_SCAN", TQ.LANE)
+    with pytest.raises(ValueError, match="at most 128 scan ids"):
+        TQ.check_attr_rows(scene)
+
+
 def test_attr_tables_equal_reference(grads):
     ref = JQ.build_attr_table(grads["js"])
     port = TQ.build_attr_table(grads["scene"])

@@ -10,7 +10,8 @@ equal on >= 99.5% of lanes, float planes within 4 ulp on >= 99.9% of the
 lanes whose win agrees.  Forced to each split of its sphere fold (K
 threads a lane), the kernel is bit-equal to the plain version on every
 lane and plane, on the final scene and on `probe.tie_scene`, whose equal
-sphere keys must go to the lowest index.  The nearest-sphere spike (K2)
+sphere keys must go to the lowest index, and with 5 and 6 media
+(`probe.media_scene`) through its run-time media count.  The nearest-sphere spike (K2)
 is bit-equal to its plain version on the card, at the wrapper's K and
 forced to every K of `spike_pmat.SPLITS`, at 64 and 4096 rows,
 on the tie table (`make_tie_inputs`) and on degenerate rays
@@ -94,6 +95,34 @@ def test_every_split_is_bit_equal_on_card(cuda_device, scene, k):
     assert all(agree[p] == 1.0 for p in probe.INT_PLANES), agree
     assert all(agree[p + "_max_ulp"] == 0.0
                for p in probe.FLOAT_PLANES + probe.FIX_PLANES), agree
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", WB.SPLITS)
+@pytest.mark.parametrize("n_media", [5, 6])
+def test_run_time_media_count_is_bit_equal_on_card(cuda_device, n_media, k):
+    """Past the 4 templated media counts, the run-time instantiation."""
+    build = lambda aspect, device: probe.media_scene(aspect, n_media, device)
+    tables, st, fix, texel, srv = _case(cuda_device, rows=16, build=build)
+    assert tables.med.shape[1] == n_media
+    kern = WB.wave_bounce(tables, st, fix, texel, srv, tile_rows=8,
+                          _split=k, **KW)
+    torch.cuda.synchronize()
+    plain = WB.wave_bounce_plain(tables, st, fix, texel, srv, **KW)
+    agree = probe.agreement(kern, plain)
+    assert all(agree[p] == 1.0 for p in probe.INT_PLANES), agree
+    assert all(agree[p + "_max_ulp"] == 0.0
+               for p in probe.FLOAT_PLANES + probe.FIX_PLANES), agree
+
+
+@pytest.mark.cuda
+def test_kernel_rejects_more_media_than_it_takes(cuda_device):
+    _, st, fix, texel, srv = _case(cuda_device, rows=8)
+    scene, cam = probe.media_scene(W / H, WB.MAX_MED + 1, cuda_device)
+    tables = WB.pack_scene(scene)._replace(
+        cam=WB.pack_camera(cam, W, H, cuda_device), seed=11)
+    with pytest.raises(ValueError, match="media slots"):
+        WB.wave_bounce(tables, st, fix, texel, srv, tile_rows=8, **KW)
 
 
 @pytest.mark.cuda
