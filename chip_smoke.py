@@ -26,7 +26,13 @@ Phases, each of which raises on failure (exit code != 0):
    through the run-time count); then the final scene with 6 media
    (`probe.media_scene`: the run-time media count) and with 4 (the
    templated one), one full-width launch each, bit-equal to the plain
-   version on every plane, timed beside its bound;
+   version on every plane, timed beside its bound; then past the shared-
+   memory caps, K1's global variant: the final scene with 30 media and
+   with 13,000 static spheres (`probe.sphere_scene`, a fold table over
+   208 KB), one launch at 16,384 lanes and one at full width each,
+   bit-equal to the plain version and timed, and `render_wq` of each at
+   160x120, 2 spp, depth 8 with every launch held bit-equal to the plain
+   version (launches = iterations);
 4. small frame: the final scene at 32x24, 4 spp, depth 8 rendered through
    the kernel (device="cuda") and through the plain version
    (device="cpu"), held to the work-queue test envelope;
@@ -98,7 +104,26 @@ Phases, each of which raises on failure (exit code != 0):
    first step, each updated param leaf within 1e-5 relative L2, the
    two ranks' params bit-equal, and each rank's K1 launches equal to the
    recorded steps of its half of the pixels; (d)
-   `dryrun.dryrun_multichip(2)` on the card (gloo).
+   `dryrun.dryrun_multichip(2)` on the card (gloo);
+13. the oracle engines (torch ops, no hand kernel) on the card: (a)
+   `render_wavefront` of the final scene at 800x600, depth 50, 8 spp
+   (one tile of the whole frame) inside tests/test_wq.py's final-scene
+   envelope of `render_wq`'s (wall, segments, iterations, lanes, peak
+   memory); (b) `render_parity` at 800x600, 1 spp, banded equal to
+   unbanded (the peak memory of each), and at 40x24 on the card against
+   the CPU (differing pixels counted, held to the envelope if any); (c)
+   `render_fused` and `render_perf` of cornell_box at its size, 8 spp,
+   depth 8 (cut from its 50), inside the envelope of
+   `render_wavefront`; (f) `render_sharded(renderer="jnp")` of that frame
+   at world size 1 over NCCL within rtol 1e-5, atol 1e-6 of
+   `render_perf`; (d) the CLI's `--renderer parity|wavefront|fused|perf`
+   on three_spheres, and `render_checkpointed(renderer="jnp")` resumed
+   bit-equal to a fresh render; (e) `checked_render` of cornell_box at
+   32x32 and a NaN scene that must raise; (g) two
+   `make_train_step(backend="jnp", geometry_edge=[i])` steps at phase 9's
+   setting (the metal sphere's silhouette), the loss falling and the
+   colour gradient within 2e-2 of a finite difference of the port's own
+   render.
 Kernel times are CUDA events around 20 launches queued behind a device
 sleep, so the launches run back to back and host launch latency is not
 in them.  Then the kernel table as one JSON line: K1 once for the forward
@@ -108,10 +133,12 @@ times weighted by the stages' launches), each with its per-width times,
 K2 (the three `run` calls' launches, the 4096-row times, its
 per-size times), and K1 on the app path (phase 11's checkpointed
 launches, the largest difference of its frames and kept launches, the
-final scene's kept launch's times, each preset's under "presets"), and
-K1 on the sharded path (phase 12's launches in (a)-(c), its kept launch's
+final scene's kept launch's times, each preset's under "presets"), K1
+on the sharded path (phase 12's launches in (a)-(c), its kept launch's
 times and difference, and the (b) frames' largest difference from
-`render_wq` as "frame_err"); K1's forward row also holds phase 3's 4-
+`render_wq` as "frame_err"), and K1's global variant (phase 3's
+`render_wq` launches past the caps, the 30-media full-width launch's
+times, every case under "cases"); K1's forward row also holds phase 3's 4-
 and 6-media launches under "media"; the card's name and power limit; and last
 {"ok": true, "device": {...}}.  Nothing here imports JAX.
 """
@@ -137,6 +164,7 @@ APP_SPP, CKPT_EVERY = 8, 4        # phase 11: the CLI renders, checkpoints
 KEPT_LAUNCH = 5   # phase 11 keeps this full-width launch of a render
 MEDIA_OCC = (1, 2, 3, 4, 6)       # phase 3: K1's occupancy at these counts
 SHARD_SPP = 8                     # phase 12 (b): the two-rank frames
+CAPS_FRAME = (160, 120, 2, 8)     # phase 3: render_wq past the caps
 HBM_BYTES_S = 3.35e12     # H100 SXM HBM3 rate (NVIDIA data sheet)
 FP32_OPS_S = 67e12        # H100 SXM FP32 peak outside the tensor cores
 
@@ -191,9 +219,9 @@ def ptxas_report(text: str) -> list:
 
 def kernel_name(mangled: str) -> str:
     """A kernel instantiation's name with its template arguments."""
-    k = re.search(r"wave_kernelILi(\d+)ELi(\d+)E", mangled)
+    k = re.search(r"wave_kernelILi(n?\d+)ELi(\d+)E", mangled)
     if k:
-        nmed = "run-time" if k.group(1) == "0" else k.group(1)
+        nmed = {"0": "run-time", "n1": "global"}.get(k.group(1), k.group(1))
         return f"wave_kernel<NMED={nmed}, K={k.group(2)}>"
     k = re.search(r"pmat_kernelILi(\d+)E", mangled)
     if k:
@@ -339,6 +367,129 @@ def phase_media(dev) -> dict:
     return out
 
 
+def check_every_launch(what: str):
+    """A context in which every K1 launch is held bit-equal to the plain
+    version on its own inputs, on every plane; `.n` counts them and
+    `.max_abs` is the largest float difference (0 when bit-equal)."""
+    from path_tracer_tpu_torch.ops import wave_bounce as WB
+
+    class Checked:
+        n, max_abs = 0, 0.0
+
+        def __enter__(self):
+            self.launch = launch = WB._launch
+
+            def checked(tables, st, fix, texel, srv, t_min, max_depth,
+                        attenuate, split=None):
+                outs = launch(tables, st, fix, texel, srv, t_min, max_depth,
+                              attenuate, split)
+                kern = WB._wave_out(st, outs)
+                plain = WB.wave_bounce_plain(tables, st, fix, texel, srv,
+                                             t_min=t_min,
+                                             max_depth=max_depth,
+                                             attenuate=attenuate)
+                if not all(torch.equal(x, y) for x, y in zip(
+                        k1_bits(kern), k1_bits(plain))):
+                    raise AssertionError(f"{what}: launch {self.n} is not "
+                                         f"bit-equal to the plain version")
+                self.max_abs = max(self.max_abs,
+                                   k1_compare(kern, plain, what)[1])
+                self.n += 1
+                return outs
+
+            WB._launch = checked
+            return self
+
+        def __exit__(self, *exc):
+            WB._launch = self.launch
+
+    return Checked()
+
+
+def phase_caps(dev) -> dict:
+    """3, past the shared-memory caps: the final scene with 30 media
+    (`probe.media_scene`) and with 13,000 static spheres
+    (`probe.sphere_scene`, a fold table over 208 KB), both K1's global
+    variant.  For each: one launch at 16,384 lanes and one at full width
+    on a probe state, bit-equal to the plain version on every plane and
+    timed beside the bound; then `render_wq` of the scene at CAPS_FRAME
+    with every launch held bit-equal to the plain version, its launches
+    counted from 0.  Returns the kernels-line row of the variant."""
+    from path_tracer_tpu_torch.engine.wq import _pack_atlas_flat, render_wq
+    from path_tracer_tpu_torch.ops import probe
+    from path_tracer_tpu_torch.ops import wave_bounce as WB
+    kw = dict(t_min=1e-3, max_depth=DEPTH, attenuate=False)
+    full_rows = -(-W * H // (64 * 128)) * 64
+    cases, launches, max_abs = {}, 0, 0.0
+    for name, build in (
+            ("30 media", lambda: probe.media_scene(W / H, 30, device=dev)),
+            ("13,000 spheres", lambda: probe.sphere_scene(W / H,
+                                                          device=dev))):
+        scene, cam = build()
+        tables = WB.pack_scene(scene)._replace(
+            cam=WB.pack_camera(cam, W, H, dev), seed=0)
+        variant = WB.k1_variant(tables.med.shape[1],
+                                tables.fold.shape[0] * 16)
+        if variant != "global":
+            raise AssertionError(f"{name}: takes the {variant} variant")
+        atlas, _ = _pack_atlas_flat(scene.textures.atlas)
+        for rows in (128, full_rows):
+            st, fix, texel, srv = probe.probe_state(
+                tables, cam, W, H, atlas, rows=rows, bounces=3,
+                max_depth=DEPTH, seed=1, tile_rows=64)
+            call = lambda: WB.wave_bounce(tables, st, fix, texel, srv,
+                                          tile_rows=64, **kw)
+            plain = WB.wave_bounce_plain(tables, st, fix, texel, srv, **kw)
+            kern = call()
+            if not all(torch.equal(x, y) for x, y in zip(k1_bits(kern),
+                                                         k1_bits(plain))):
+                raise AssertionError(f"{name}, {rows * 128} lanes: the "
+                                     f"kernel is not bit-equal to plain")
+            _, err = k1_compare(kern, plain, name)
+            max_abs = max(max_abs, err)
+            ms = cuda_ms(call, 10)
+            plain_ms = cuda_ms(lambda: WB.wave_bounce_plain(
+                tables, st, fix, texel, srv, **kw), 1)
+            nbytes, ops = k1_bound(tables, st, fix, srv)
+            t_b, t_o = nbytes / HBM_BYTES_S * 1e3, ops / FP32_OPS_S * 1e3
+            cases[f"{name}, {rows * 128} lanes"] = dict(
+                lanes=rows * 128, ms=ms, plain_ms=plain_ms,
+                bound_ms=max(t_b, t_o),
+                bound_by="bytes" if t_b >= t_o else "operations",
+                max_abs_err=err, fold_bytes=tables.fold.shape[0] * 16,
+                media=tables.med.shape[1])
+            log(f"[3] {name} (global variant, fold table "
+                f"{tables.fold.shape[0] * 16} B, {tables.med.shape[1]} "
+                f"media), {rows * 128} lanes (K=1): bit-equal to plain on "
+                f"every plane; kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
+                f"bound {max(t_b, t_o):.5f} ms")
+            del st, fix, texel, srv, kern, plain
+        cw, ch, cspp, cdepth = CAPS_FRAME
+        WB.wave_bounce.launches = 0
+        with check_every_launch(f"render_wq, {name}") as chk:
+            img, segs, iters, _ = render_wq(scene, cam, cw, ch, cspp,
+                                            max_depth=cdepth,
+                                            return_stats=True, device=dev)
+        n = WB.wave_bounce.launches
+        frame = img.cpu().numpy()
+        log(f"[3] render_wq, {name}, {cw}x{ch}x{cspp} depth {cdepth}: "
+            f"{n} launches (iterations {iters}), each bit-equal to plain; "
+            f"frame mean {float(frame.mean()):.4f}")
+        if n == 0 or n != iters or chk.n != n or not np.isfinite(
+                frame).all():
+            raise AssertionError(f"render_wq on {name}: launches {n}, "
+                                 f"iterations {iters}, checked {chk.n}")
+        launches += n
+        max_abs = max(max_abs, chk.max_abs)
+    big = cases[f"30 media, {full_rows * 128} lanes"]
+    return dict(name="wave_bounce", path="global variant", route="cuda",
+                source="path_tracer_tpu_torch/ops/csrc/wave_bounce.cu",
+                replaces="path_tracer_tpu/ops/pallas/wave_bounce.py:536",
+                launches=launches, max_abs_err=max_abs, ms=big["ms"],
+                plain_ms=big["plain_ms"], bound_ms=big["bound_ms"],
+                bound_by=big["bound_by"], library_ms=None, cases=cases)
+
+
 def time_host(fn, reps: int) -> float:
     """Mean wall seconds of fn() ending in a device synchronise, after
     one warm-up call (the reference's bench_grad timing)."""
@@ -425,6 +576,7 @@ def main(old_kernel=None, old_pmat=None) -> list:
         library_ms=None)
     del st, fix, texel, srv, kern, plain
     kernel_row["media"] = phase_media(dev)
+    caps_row = phase_caps(dev)
 
     # ---- 4. small frame: kernel against plain ------------------------------
     small = {}
@@ -506,7 +658,8 @@ def main(old_kernel=None, old_pmat=None) -> list:
         stage_launches, grad_row["widths"])) / sum(stage_launches)
     app_row = phase_app(dev)
     sharded_row = phase_sharded(dev, frame, train_first)
-    return [kernel_row, grad_row, pmat_row, app_row, sharded_row]
+    phase_oracle(dev)
+    return [kernel_row, grad_row, pmat_row, app_row, sharded_row, caps_row]
 
 
 def load_old_pmat(path: str):
@@ -1489,6 +1642,312 @@ def phase_sharded(dev, frame: np.ndarray, first: dict) -> dict:
                     b=[res[s]["launches"] for res in ranks
                        for s in ((2, 1), (1, 2))],
                     c=[res["train"]["launches"] for res in ranks]))
+
+
+# phase 13's frames: (a) render_wavefront against render_wq, (b)
+# render_parity banded and unbanded, and on the card and the CPU, (c) the
+# chunked oracle renderers, (d) the command line, (e) checked_render, (f)
+# render_sharded's jnp renderer, (g) the jnp train step.  (c) and (f) run
+# cornell_box at depth 8, not its 50: at 50 their host loops took ~1,000
+# bounces and ~50 s, which kept the script past the time it had before
+ORACLE = dict(
+    wavefront=(W, H, 8, DEPTH), parity=(W, H, 1, DEPTH), parity_bands=100,
+    parity_crop=(48, 64), parity_small=(40, 24, 1, DEPTH),
+    chunked=("cornell_box", 8, 8), cli="three_spheres", ckpt=(8, 4),
+    checked=(32, 32, 2, 8), train=(GW, GH, GSPP, DEPTH))
+
+
+def envelope(img, ref, tol=5e-3, frac=0.03):
+    """tests/test_wq.py's final-scene envelope: at most `frac` of the
+    pixels beyond `tol`.  Returns (fraction beyond, largest difference)."""
+    d = np.abs(img - ref).max(axis=-1)
+    bad = float((d > tol).mean())
+    if img.shape != ref.shape or not np.isfinite(img).all() or bad > frac:
+        raise AssertionError(f"outside the envelope: {bad:.4f} of pixels "
+                             f"beyond {tol}, max {float(d.max()):.4g}")
+    return bad, float(d.max())
+
+
+def peak_gib(dev) -> float:
+    return (torch.cuda.max_memory_allocated(dev) / 2 ** 30
+            if dev.type == "cuda" else 0.0)
+
+
+def reset_peak(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+
+
+def jnp_loss_frame(scene, cam, w, h, spp, depth, dev):
+    """The jnp train step's image (the mean of `spp` samples a pixel,
+    emission attenuated, seed 0) without autograd."""
+    from path_tracer_tpu_torch.core.rng import seed_perf
+    from path_tracer_tpu_torch.engine.integrator import camera_rays, trace
+    pix = torch.arange(w * h, device=dev).repeat(spp)
+    samp = torch.arange(spp, device=dev).repeat_interleave(w * h)
+    state, o, d, t = camera_rays(cam, w, h, pix, seed_perf(pix, samp, 0))
+    with torch.no_grad():
+        _, rad = trace(scene, o, d, t, state, depth,
+                       attenuate_emission=True)
+    return torch.stack([c.reshape(spp, w * h).mean(0) for c in rad], -1)
+
+
+def phase_oracle(dev, sizes=None) -> dict:
+    """13. The oracle engines (torch ops, no hand kernel) on the device
+    through their entry points, (a)-(g) as the module docstring says;
+    `sizes` overrides ORACLE's (a CPU rehearsal takes small ones)."""
+    import shutil
+    import tempfile
+    import torch.distributed as dist
+    from path_tracer_tpu_torch.diff import params as P
+    from path_tracer_tpu_torch.engine import checkpoint as CK
+    from path_tracer_tpu_torch.engine import integrator as I
+    from path_tracer_tpu_torch.engine.wq import render_wq
+    from path_tracer_tpu_torch.parallel import launch
+    from path_tracer_tpu_torch.parallel.mesh import (make_mesh,
+                                                     make_train_step,
+                                                     render_sharded,
+                                                     scene_camera_params)
+    from path_tracer_tpu_torch.scene.presets import PRESETS, build_final_scene
+    from path_tracer_tpu_torch.utils.debug import checked_render
+    z = dict(ORACLE, **(sizes or {}))
+    sync = (lambda: torch.cuda.synchronize(dev)) if dev.type == "cuda" \
+        else (lambda: None)
+    out = {}
+
+    # (a) render_wavefront against render_wq
+    w, h, spp, depth = z["wavefront"]
+    scene, cam = build_final_scene(w / h, device=dev)
+    reset_peak(dev)
+    t0 = time.perf_counter()
+    img, st = I.render_wavefront(scene, cam, w, h, spp, max_depth=depth,
+                                 seed=0, return_stats=True, device=dev)
+    img = img.cpu().numpy()
+    wall = time.perf_counter() - t0
+    peak = peak_gib(dev)
+    ref = render_wq(scene, cam, w, h, spp, max_depth=depth, seed=0,
+                    device=dev).cpu().numpy()
+    bad, worst = envelope(img, ref)
+    out["a"] = dict(wall_s=wall, peak_gib=peak, beyond=bad, max_diff=worst,
+                    **st)
+    log(f"[13] (a) render_wavefront, final scene {w}x{h}x{spp} depth "
+        f"{depth}: {wall:.3f} s, {st['segments']} segments, {st['iters']} "
+        f"iterations, {st['lanes']} lanes in {st['tiles']} tile(s), peak "
+        f"{peak:.2f} GiB; against render_wq {bad:.4f} of "
+        f"pixels beyond 5e-3 (max {worst:.3g})")
+
+    # (b) render_parity: banded = unbanded; the card against the CPU
+    w, h, spp, depth = z["parity"]
+    reset_peak(dev)
+    t0 = time.perf_counter()
+    banded = I.render_parity(scene, cam, w, h, spp, depth,
+                             band_rows=z["parity_bands"],
+                             device=dev).cpu().numpy()
+    t_band = time.perf_counter() - t0
+    peak_band = peak_gib(dev)
+    reset_peak(dev)
+    t0 = time.perf_counter()
+    whole = I.render_parity(scene, cam, w, h, spp, depth,
+                            device=dev).cpu().numpy()
+    t_whole = time.perf_counter() - t0
+    peak_whole = peak_gib(dev)
+    ch_, cw_ = z["parity_crop"]
+    if not (np.array_equal(banded, whole)
+            and np.array_equal(banded[:ch_, :cw_], whole[:ch_, :cw_])):
+        raise AssertionError("(b): the banded parity frame differs")
+    sw, sh, sspp, sdepth = z["parity_small"]
+    small = {}
+    for d in (dev, torch.device("cpu")):
+        s_scene, s_cam = build_final_scene(sw / sh, device=d)
+        small[d.type] = I.render_parity(s_scene, s_cam, sw, sh, sspp,
+                                        sdepth, device=d).cpu().numpy()
+    differ = int((small[dev.type] != small["cpu"]).any(-1).sum())
+    out["b"] = dict(banded_s=t_band, whole_s=t_whole,
+                    banded_peak_gib=peak_band, whole_peak_gib=peak_whole,
+                    small_differing_pixels=differ)
+    log(f"[13] (b) render_parity, final scene {w}x{h}x{spp} depth {depth}: "
+        f"bands of {z['parity_bands']} rows {t_band:.3f} s, peak "
+        f"{peak_band:.2f} GiB; unbanded {t_whole:.3f} s, peak "
+        f"{peak_whole:.2f} GiB; equal (the {cw_}x{ch_} crop too); {sw}x{sh} "
+        f"on {dev.type} and cpu: {differ} differing pixels")
+    if differ:
+        envelope(small[dev.type], small["cpu"])
+    del scene, cam
+
+    # (c) render_fused, render_perf against render_wavefront
+    name, spp, depth = z["chunked"]
+    pr = PRESETS[name]
+    scene, cam = pr.build(device=dev)
+    w, h = pr.width, pr.height
+    t0 = time.perf_counter()
+    ref = I.render_wavefront(scene, cam, w, h, spp, max_depth=depth,
+                             device=dev).cpu().numpy()
+    times = {"wavefront": time.perf_counter() - t0}
+    chunked = {}
+    for fn in ("fused", "perf"):
+        t0 = time.perf_counter()
+        chunked[fn] = getattr(I, f"render_{fn}")(
+            scene, cam, w, h, spp, max_depth=depth, device=dev).cpu().numpy()
+        times[fn] = time.perf_counter() - t0
+        bad, worst = envelope(chunked[fn], ref)
+        log(f"[13] (c) render_{fn}, {name} {w}x{h}x{spp} depth {depth}: "
+            f"{times[fn]:.3f} s (render_wavefront {times['wavefront']:.3f} "
+            f"s); {bad:.4f} of pixels beyond 5e-3 (max {worst:.3g})")
+    out["c"] = times
+
+    # (f) render_sharded(renderer="jnp") at world size 1 against render_perf
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    dist.init_process_group(backend, init_method=f"tcp://localhost:"
+                            f"{launch.free_port()}", world_size=1, rank=0)
+    try:
+        mesh = make_mesh(1, 1, device=dev)
+        t0 = time.perf_counter()
+        fb = render_sharded(scene, cam, w, h, spp, mesh, max_depth=depth,
+                            renderer="jnp")
+        sync()
+        t_sh = time.perf_counter() - t0
+    finally:
+        dist.destroy_process_group()
+    np.testing.assert_allclose(fb.reshape(h, w, 3).cpu().numpy(),
+                               chunked["perf"], rtol=1e-5, atol=1e-6)
+    out["f"] = dict(wall_s=t_sh, backend=backend)
+    log(f"[13] (f) render_sharded(renderer='jnp'), 1x1 mesh on {backend}, "
+        f"{name} {w}x{h}x{spp} depth {depth}: {t_sh:.3f} s, within rtol 1e-5 atol 1e-6 "
+        f"of render_perf")
+    del scene, cam
+
+    # (d) the command line's oracle renderers, and the jnp checkpoint loop
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_oracle_")
+    try:
+        name = z["cli"]
+        pr = PRESETS[name]
+        for r in ("parity", "wavefront", "fused", "perf"):
+            png = os.path.join(tmp, f"{r}.png")
+            t0 = time.perf_counter()
+            run_cli(["render", "--scene", name, "--renderer", r,
+                     "--device", dev.type, "-o", png])
+            back = read_png(png)
+            log(f"[13] (d) cli render --scene {name} --renderer {r}: "
+                f"{time.perf_counter() - t0:.3f} s, PNG {back.shape}")
+            if back.shape != (pr.height, pr.width, 3):
+                raise AssertionError(f"(d) {r}: PNG {back.shape}")
+        scene, cam = pr.build(device=dev)
+        ck_spp, half = z["ckpt"]
+        # ranges of `half` samples: max_lanes holds that many a pixel
+        kw = dict(checkpoint_every=half, scene_name=name, renderer="jnp",
+                  max_lanes=half * pr.width * pr.height, device=dev)
+        d1 = os.path.join(tmp, "resumed")
+        CK.render_checkpointed(scene, cam, pr.width, pr.height, half,
+                               pr.max_depth, ckpt_dir=d1, **kw)
+        t0 = time.perf_counter()
+        CK.render_checkpointed(scene, cam, pr.width, pr.height, ck_spp,
+                               pr.max_depth, ckpt_dir=d1, **kw)
+        t_res = time.perf_counter() - t0
+        d2 = os.path.join(tmp, "fresh")
+        CK.render_checkpointed(scene, cam, pr.width, pr.height, ck_spp,
+                               pr.max_depth, ckpt_dir=d2, **kw)
+        ident = dict(scene=name, width=pr.width, height=pr.height,
+                     max_depth=pr.max_depth, seed=0, t_min=1e-3,
+                     attenuate_emission=False, renderer="jnp")
+        a1, n1 = CK.load_checkpoint(d1, ident)
+        a2, n2 = CK.load_checkpoint(d2, ident)
+        if n1 != ck_spp or n2 != ck_spp or not np.array_equal(a1, a2):
+            raise AssertionError("(d): the resumed jnp accumulator differs")
+        log(f"[13] (d) render_checkpointed(renderer='jnp'), {name}: {half} "
+            f"spp, resumed to {ck_spp} in {t_res:.3f} s, bit-equal to a "
+            f"fresh {ck_spp}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # (e) checked_render
+    w, h, spp, depth = z["checked"]
+    scene, cam = PRESETS["cornell_box"].build(device=dev)
+    t0 = time.perf_counter()
+    img = checked_render(scene, cam, w, h, spp, max_depth=depth, device=dev)
+    t_chk = time.perf_counter() - t0
+    assert_finite = np.isfinite(img.cpu().numpy()).all()
+    c1 = scene.textures.c1
+    nan_scene = scene._replace(textures=scene.textures._replace(
+        c1=type(c1)(torch.full_like(c1.x, float("nan")), c1.y, c1.z)))
+    try:
+        checked_render(nan_scene, cam, w, h, 1, max_depth=depth, device=dev)
+    except FloatingPointError as e:
+        log(f"[13] (e) checked_render, cornell_box {w}x{h}x{spp}: "
+            f"{t_chk:.3f} s, finite {assert_finite}; the NaN scene raised: "
+            f"{e}")
+    else:
+        raise AssertionError("(e): the NaN scene did not raise")
+    if not assert_finite:
+        raise AssertionError("(e): checked_render's image is not finite")
+
+    # (g) two jnp train steps with the silhouette term
+    w, h, spp, depth = z["train"]
+    scene, cam = build_final_scene(w / h, device=dev)
+    sph = scene.spheres
+    # the metal sphere at (0, 1, -2.25): its silhouette and its colour
+    i = int(torch.argmin((sph.c0.x - 0.0).abs() + (sph.c0.y - 1.0).abs()
+                         + (sph.c0.z + 2.25).abs()))
+    m = int(sph.mat[i])
+    target = jnp_loss_frame(scene, cam, w, h, spp, depth, dev)
+    params, (s_scene, s_cam) = scene_camera_params(scene, cam)
+    params = perturb_colors(params)
+
+    def keep(grads):
+        g = only_material_colors(grads)
+        s = grads[0].spheres
+        mask = torch.zeros_like(s.radius)
+        mask[i] = 1.0
+        return (g[0]._replace(spheres=g[0].spheres._replace(
+            c0=type(s.c0)(*(c * mask for c in s.c0)),
+            radius=s.radius * mask)), g[1])
+
+    step = make_train_step(s_scene, s_cam, w, h, spp, depth, lr=TRAIN_LR,
+                           grad_filter=keep, device=dev, backend="jnp",
+                           geometry_edge=[i])
+    pix = torch.arange(w * h, device=dev)
+    p0 = params
+    losses, walls = [], []
+    reset_peak(dev)
+    for _ in range(2):
+        t0 = time.perf_counter()
+        params, loss = step(params, target, pix)
+        losses.append(float(loss))
+        walls.append(time.perf_counter() - t0)
+        if len(losses) == 1:
+            p1 = params
+    g = float((p0[0].materials.color.x[m] - p1[0].materials.color.x[m])
+              / TRAIN_LR)
+
+    def loss_at(v):
+        s_, c_ = P.combine(p0, (s_scene, s_cam))
+        col = s_.materials.color
+        x = col.x.clone()
+        x[m] = v
+        s_ = s_._replace(materials=s_.materials._replace(
+            color=type(col)(x, col.y, col.z)))
+        err = jnp_loss_frame(s_, c_, w, h, spp, depth, dev) - target
+        return float((err * err).sum()) / (w * h * 3)
+
+    x0, eps = float(p0[0].materials.color.x[m]), 1e-2
+    fd = (loss_at(x0 + eps) - loss_at(x0 - eps)) / (2 * eps)
+    moved = [float((p1[0].spheres.radius[i] - p0[0].spheres.radius[i])),
+             float((p1[0].spheres.c0.x[i] - p0[0].spheres.c0.x[i]))]
+    out["g"] = dict(losses=losses, step_s=walls, peak_gib=peak_gib(dev),
+                    grad=g, fd=fd, sphere=i, edge_moved=moved)
+    log(f"[13] (g) make_train_step(backend='jnp', geometry_edge=[{i}]), "
+        f"final scene {w}x{h}x{spp} depth {depth}, lr {TRAIN_LR}: losses "
+        f"{losses}, {walls[0]:.3f} / {walls[1]:.3f} s a step, peak "
+        f"{out['g']['peak_gib']:.2f} GiB; d loss / d colour.x[{m}] {g:.6g} "
+        f"against the finite difference {fd:.6g}; sphere {i}'s radius and "
+        f"centre x moved {moved}")
+    if not (all(np.isfinite(losses)) and losses[0] > losses[1]):
+        raise AssertionError(f"(g): the loss did not fall: {losses}")
+    if not abs(g - fd) <= 2e-2 * abs(fd):
+        raise AssertionError(f"(g): gradient {g} against FD {fd}")
+    if not all(v != 0.0 for v in moved):
+        raise AssertionError("(g): the silhouette term moved nothing")
+    return out
 
 
 if __name__ == "__main__":

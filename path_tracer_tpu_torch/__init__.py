@@ -21,17 +21,23 @@ Across devices (`parallel`), one `torch.distributed` rank a device:
 mesh of ranks (`make_mesh`, `global_mesh`), `assemble_image` gathers it,
 `make_train_step(mesh=...)` all-reduces the gradients, `bring_up` joins
 the group `torchrun` describes, and `dryrun.dryrun_multichip` checks it
-all on n ranks.
+all on n ranks.  The oracle engines are torch ops on any device:
+`engine.intersect`, `engine.scatter` and `engine.integrator` (`trace`,
+`render_parity`, `render_perf`, `render_fused`, `render_wavefront`), the
+yardstick `render_wq` is held against, and `diff.edge`'s silhouette
+gradients.
 """
 
 from .core.camera import Camera
 from .core.vec import Vec3
 from .scene.builder import SceneBuilder
 from .diff.queued_vjp import render_grad_fb
+from .engine.integrator import render_parity, render_perf, trace
 from .parallel.mesh import make_mesh, make_train_step, render_sharded
 from .parallel.multihost import assemble_image, bring_up, global_mesh
 
-__all__ = ["Camera", "Vec3", "SceneBuilder", "render_grad_fb",
-           "make_train_step", "make_mesh", "render_sharded",
-           "assemble_image", "bring_up", "global_mesh"]
+__all__ = ["Camera", "Vec3", "SceneBuilder", "render_parity",
+           "render_perf", "trace", "render_grad_fb", "make_train_step",
+           "make_mesh", "render_sharded", "assemble_image", "bring_up",
+           "global_mesh"]
 __version__ = "0.2.0"

@@ -2,14 +2,19 @@
 
 Mirrors the reference package's `cli.py`.  Where the reference hard-codes
 one scene, one size, 100 spp and depth 50, every knob here is a flag, and
-the five staged preset scenes replace the single built-in one.  Every
-render runs the work-queue renderer, whose bounces on the card go through
-the CUDA kernel `ops/csrc/wave_bounce.cu`.  `--device` (default cuda)
-stands where the reference package reads `JAX_PLATFORMS`; without CUDA,
-`render` and `bench` raise unless given `--device cpu`.
+the five staged preset scenes replace the single built-in one.  The
+renderers are the reference's: `wq`, the work queue, whose bounces on the
+card go through the CUDA kernel `ops/csrc/wave_bounce.cu`; and the oracle
+engine's `wavefront`, `fused`, `perf` and `parity` (torch ops).  `auto`
+runs `wq` on CUDA and `wavefront` on the CPU, as the reference's
+`resolve_auto_renderer` runs its megakernel on accelerators and its jnp
+loop on the CPU; `bench` follows the same rule.  `--device` (default
+cuda) stands where the reference package reads `JAX_PLATFORMS`; without
+CUDA, `render` and `bench` raise unless given `--device cpu`.
 
     python -m path_tracer_tpu_torch render --scene final_scene --spp 100 -o out.png
     python -m path_tracer_tpu_torch render --scene cornell_box --device cpu
+    python -m path_tracer_tpu_torch render --scene cornell_box --renderer perf
     python -m path_tracer_tpu_torch info
     python -m path_tracer_tpu_torch bench --scene three_spheres
 """
@@ -28,6 +33,8 @@ from .config import DEVICES, RENDERERS, RenderConfig
 from .core.camera import Camera
 from .core.device import resolve_device
 from .engine.checkpoint import render_checkpointed
+from .engine.integrator import (render_fused, render_parity, render_perf,
+                                render_wavefront)
 from .engine.wq import render_wq
 from .scene.presets import PRESETS, build_final_scene
 from .scene.types import Scene
@@ -49,12 +56,14 @@ def _build_parser() -> argparse.ArgumentParser:
     r.add_argument("--max-depth", type=int, default=None,
                    help="bounce depth (reference: 50, render.hpp:144)")
     r.add_argument("--renderer", default="auto", choices=list(RENDERERS),
-                   help="accepted as the reference's command line "
-                        "takes it; both names run the work-queue renderer, "
-                        "the port's only one")
+                   help="launch strategy: wq = windowed work queue (its "
+                        "CUDA kernel, the auto default on cuda); "
+                        "wavefront = the oracle bounce loop (auto default "
+                        "on cpu); fused, perf = chunked oracle loops; "
+                        "parity = the reference's RNG streams")
     r.add_argument("--device", default="cuda", choices=list(DEVICES),
-                   help="cuda: the CUDA kernel; cpu: its plain PyTorch "
-                        "version")
+                   help="cuda: the card (K1 for wq); cpu: plain PyTorch "
+                        "(K1's plain version for wq)")
     r.add_argument("--seed", type=int, default=0)
     r.add_argument("--t-min", type=float, default=1e-3)
     r.add_argument("--attenuate-emission", action="store_true",
@@ -80,6 +89,12 @@ def _build_parser() -> argparse.ArgumentParser:
                    help="default: 40 on cuda, 2 on cpu")
     b.add_argument("--device", default="cuda", choices=list(DEVICES))
     return ap
+
+
+def resolve_auto_renderer(device: torch.device) -> str:
+    """What `--renderer auto` runs: the work queue on CUDA (the path
+    `chip_smoke.py` measures), the wavefront engine on the CPU."""
+    return "wq" if device.type == "cuda" else "wavefront"
 
 
 def preset_scene(name: str, width: int, height: int, device
@@ -124,6 +139,11 @@ def _cmd_render(args) -> int:
     dev = resolve_device(cfg.device)
     scene, cam = preset_scene(cfg.scene, cfg.width, cfg.height, dev)
     timer = profiling.PhaseTimer()
+    renderer = cfg.renderer
+    if renderer == "auto":
+        renderer = resolve_auto_renderer(dev)
+    common = (scene, cam, cfg.width, cfg.height, cfg.spp, cfg.max_depth,
+              cfg.attenuate_emission, cfg.t_min)
 
     segments = None
     with profiling.trace(cfg.profile_dir):
@@ -131,16 +151,25 @@ def _cmd_render(args) -> int:
         # so divides by the sum of every phase, the PNG write included
         with timer.phase("compile+render"):
             if cfg.checkpoint_dir:
+                # the work queue, whatever --renderer says, as in the
+                # reference (`render_checkpointed(renderer="jnp")` is the
+                # oracle's chunk loop)
                 img = render_checkpointed(
-                    scene, cam, cfg.width, cfg.height, cfg.spp,
-                    cfg.max_depth, cfg.attenuate_emission, cfg.t_min,
-                    cfg.seed, cfg.checkpoint_dir, cfg.checkpoint_every,
-                    scene_name=cfg.scene, device=dev)
-            else:
+                    *common, cfg.seed, cfg.checkpoint_dir,
+                    cfg.checkpoint_every, scene_name=cfg.scene, device=dev)
+            elif renderer == "wq":
                 img, segments, _, _ = render_wq(
-                    scene, cam, cfg.width, cfg.height, cfg.spp,
-                    cfg.max_depth, cfg.attenuate_emission, cfg.t_min,
-                    cfg.seed, return_stats=True, device=dev)
+                    *common, cfg.seed, return_stats=True, device=dev)
+            elif renderer == "wavefront":
+                img, segments = render_wavefront(
+                    *common, cfg.seed, cfg.tile_pix, cfg.slots,
+                    return_segments=True, device=dev)
+            elif renderer == "fused":
+                img = render_fused(*common, cfg.seed, device=dev)
+            elif renderer == "perf":
+                img = render_perf(*common, cfg.seed, device=dev)
+            else:
+                img = render_parity(*common, device=dev)
             img = img.cpu().numpy()         # waits for the device
 
     samples = cfg.width * cfg.height * cfg.spp
@@ -151,7 +180,7 @@ def _cmd_render(args) -> int:
         if cfg.ppm:
             sys.stdout.write(dump_ppm(img))
     profiling.log.info("wrote %s (%dx%d, %d spp, %s on %s)", cfg.out,
-                       cfg.width, cfg.height, cfg.spp, cfg.renderer, dev)
+                       cfg.width, cfg.height, cfg.spp, renderer, dev)
     if args.metrics:
         print(json.dumps(timer.summary()))
     return 0
@@ -159,17 +188,24 @@ def _cmd_render(args) -> int:
 
 def _cmd_bench(args) -> int:
     """Render the preset twice at its size and depth (a warm-up that also
-    builds the kernel, then the timed run) and print one JSON line of
-    traced segments a second."""
+    builds the kernel, then the timed run) with what `--renderer auto`
+    runs on the device, and print one JSON line of traced segments a
+    second."""
     dev = resolve_device(args.device)
     name = args.scene
     p = PRESETS[name]
     spp = args.spp or (2 if dev.type == "cpu" else 40)
     scene, cam = p.build(device=dev)
+    renderer = resolve_auto_renderer(dev)
 
     def run() -> float:
-        segs = render_wq(scene, cam, p.width, p.height, spp, p.max_depth,
-                         return_stats=True, device=dev)[1]
+        if renderer == "wavefront":
+            segs = render_wavefront(scene, cam, p.width, p.height, spp,
+                                    p.max_depth, return_segments=True,
+                                    device=dev)[1]
+        else:
+            segs = render_wq(scene, cam, p.width, p.height, spp,
+                             p.max_depth, return_stats=True, device=dev)[1]
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         return segs
@@ -184,6 +220,7 @@ def _cmd_bench(args) -> int:
         "unit": "Mray/s",
         "vs_baseline": round(segs / dt / 1e6 / 200.0, 4),
         "backend": dev.type,
+        "renderer": renderer,
         "device": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
                    else "cpu"),
     }))

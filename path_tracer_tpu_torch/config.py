@@ -11,10 +11,10 @@ from __future__ import annotations
 
 import dataclasses
 
-# The --renderer names the port accepts from the reference's command line.
-# Both run the work-queue renderer, the only one the port has; the choice
-# becomes real when a second renderer is ported.
-RENDERERS = ("auto", "wq")
+# The launch strategies, the reference's: the CLI's --renderer choices,
+# RenderConfig.validate and the auto rule (cli.resolve_auto_renderer) all
+# key off this.
+RENDERERS = ("auto", "wq", "wavefront", "fused", "perf", "parity")
 DEVICES = ("cuda", "cpu")
 
 
@@ -31,6 +31,7 @@ class RenderConfig:
     height: int = 480
     spp: int = 100
     max_depth: int = 50
+    # auto: the work queue on CUDA, the wavefront engine on the CPU
     renderer: str = "auto"
     seed: int = 0
     t_min: float = 1e-3
@@ -39,6 +40,9 @@ class RenderConfig:
     attenuate_emission: bool = False
     out: str = "out.png"
     ppm: bool = False                # also dump PPM (main.cpp:17-31)
+    # wavefront tuning (the CLI's renderer="wavefront" takes these)
+    tile_pix: int = 16384
+    slots: int = 4
     # checkpointing: save partial accumulators every N spp; "" disables
     checkpoint_dir: str = ""
     checkpoint_every: int = 0

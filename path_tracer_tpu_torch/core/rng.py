@@ -73,6 +73,15 @@ def next_frange_dyn(state: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
     return state, lo + (hi - lo) * f
 
 
+def next_vec(state: torch.Tensor, mask: Optional[torch.Tensor] = None
+             ) -> Tuple[torch.Tensor, Vec3]:
+    """vec_t(): three sequential draws (rtweekend.hpp:51)."""
+    state, x = next_f01(state, mask)
+    state, y = next_f01(state, mask)
+    state, z = next_f01(state, mask)
+    return state, Vec3(x, y, z)
+
+
 def next_unit_vec(state: torch.Tensor, mask: Optional[torch.Tensor] = None
                   ) -> Tuple[torch.Tensor, Vec3]:
     """The reference's non-uniform unit vector (rtweekend.hpp:60-67);
@@ -106,6 +115,14 @@ def next_in_unit_disk(state: torch.Tensor,
     maxy = fsqrt(1.0 - x * x)
     state, y = next_frange_dyn(state, -maxy, maxy, mask)
     return state, Vec3(x, y, torch.zeros_like(x))
+
+
+def seed_parity(linear_ids: torch.Tensor) -> torch.Tensor:
+    """Per-pixel seed as render.hpp:130-131: libstdc++'s
+    std::hash<size_t> is the identity, cut to the 32-bit state.  Pixel 0
+    therefore gets state 0, whose xorshift stream is all zeros: a
+    reference quirk kept here."""
+    return linear_ids.long() & MASK32
 
 
 def splitmix32(x: torch.Tensor) -> torch.Tensor:

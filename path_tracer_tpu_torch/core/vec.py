@@ -2,10 +2,11 @@
 a fixed rounding.
 
 A batch of vectors is three same-shaped tensors, one per component, as in
-the reference package's `core/vec.py`; only what the port's render path
-uses is here.  Every op is one rounded float32 op in the order written
-(PyTorch fuses nothing), so the CUDA kernel built with `-fmad=false`
-reproduces these values bit for bit.
+the reference package's `core/vec.py`, with its helpers (`dot`,
+`length_squared`, `reflect`, `refract`, `where`, `lerp`,
+`grad_safe_sqrt`) in its association order.  Every op is one rounded
+float32 op in the order written (PyTorch fuses nothing), so the CUDA
+kernel built with `-fmad=false` reproduces these values bit for bit.
 
 `fdiv` keeps a division by a Python number a true divide on the card.
 `fsqrt`, `fsin`, `fcos`, `flog` and `ftan` pin the float32 rounding of the
@@ -50,6 +51,14 @@ def ftan(x: torch.Tensor) -> torch.Tensor:
     return torch.tan(x.double()).float()
 
 
+def fatan2(y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    return torch.atan2(y.double(), x.double()).float()
+
+
+def fasin(x: torch.Tensor) -> torch.Tensor:
+    return torch.asin(x.double()).float()
+
+
 class Vec3(NamedTuple):
     """A batch of 3-vectors stored as three component tensors (SoA)."""
 
@@ -77,10 +86,22 @@ class Vec3(NamedTuple):
             return Vec3(self.x / o.x, self.y / o.y, self.z / o.z)
         return Vec3(self.x / o, self.y / o, self.z / o)
 
+    def __neg__(self):
+        return Vec3(-self.x, -self.y, -self.z)
+
+
+def dot(a: Vec3, b: Vec3) -> torch.Tensor:
+    """Association order x + (y + z), as length_squared."""
+    return a.x * b.x + (a.y * b.y + a.z * b.z)
+
+
+def length_squared(v: Vec3) -> torch.Tensor:
+    # association x*x + (y*y + z*z), as the reference (vec.hpp:11-13)
+    return v.x * v.x + (v.y * v.y + v.z * v.z)
+
 
 def length(v: Vec3) -> torch.Tensor:
-    # association x*x + (y*y + z*z), as the reference (vec.hpp:11-13)
-    return fsqrt(v.x * v.x + (v.y * v.y + v.z * v.z))
+    return fsqrt(length_squared(v))
 
 
 def unit_vector(v: Vec3) -> Vec3:
@@ -91,4 +112,37 @@ def cross(a: Vec3, b: Vec3) -> Vec3:
     return Vec3(a.y * b.z - a.z * b.y,
                 a.z * b.x - a.x * b.z,
                 a.x * b.y - a.y * b.x)
+
+
+def reflect(v: Vec3, n: Vec3) -> Vec3:
+    # v - 2*dot(v,n)*n (vec.hpp:26)
+    return v - n * (2.0 * dot(v, n))
+
+
+def grad_safe_sqrt(x: torch.Tensor) -> torch.Tensor:
+    """sqrt(x) for x > 0, else 0, with a finite gradient at x <= 0.  The
+    double `where` keeps the backward free of the inf * 0 = NaN that
+    `sqrt(where(m, x, 0))` gives masked-out lanes (torch.where has the same
+    trap as jnp.where)."""
+    pos = x > 0.0
+    return torch.where(pos, fsqrt(torch.where(pos, x, 1.0)), 0.0)
+
+
+def refract(uv: Vec3, n: Vec3, etai_over_etat: torch.Tensor) -> Vec3:
+    # vec.hpp:29-35; grad-safe at exact total internal reflection
+    cos_theta = torch.clamp_max(-dot(uv, n), 1.0)
+    r_out_perp = (uv + n * cos_theta) * etai_over_etat
+    r_out_parallel = n * (-grad_safe_sqrt(
+        torch.abs(1.0 - length_squared(r_out_perp))))
+    return r_out_perp + r_out_parallel
+
+
+def where(mask: torch.Tensor, a: Vec3, b: Vec3) -> Vec3:
+    """Lane-select between two vector batches."""
+    return Vec3(torch.where(mask, a.x, b.x), torch.where(mask, a.y, b.y),
+                torch.where(mask, a.z, b.z))
+
+
+def lerp(a: Vec3, b: Vec3, t: torch.Tensor) -> Vec3:
+    return a * (1.0 - t) + b * t
 

@@ -13,8 +13,8 @@ bit, on the card as on the CPU.
 
 The files are the reference package's: `accum.npz` holding `acc`, (N, 3)
 float32, and `meta.json`, so a checkpoint either package writes, the other
-reads.  The identity's "renderer" is always "wq", the only renderer the
-port has.
+reads.  The renderer ("wq", the work queue, or "jnp", the oracle engine's
+chunk loop) is part of the identity, as in the reference.
 """
 from __future__ import annotations
 
@@ -32,7 +32,10 @@ from ..core.device import resolve_device
 from ..core.vec import fdiv
 from ..scene import types as T
 from ..utils.profiling import log
+from .integrator import perf_schedule, render_range, scene_on
 from .wq import render_wq_range
+
+RENDERERS = ("wq", "jnp")
 
 # the metadata that must match for a checkpoint to be resumed
 IDENTITY_KEYS = ("scene", "width", "height", "max_depth", "seed", "t_min",
@@ -93,18 +96,25 @@ def render_checkpointed(scene: T.Scene, cam: Camera, width: int, height: int,
                         attenuate_emission: bool = False,
                         t_min: float = 1e-3, seed: int = 0,
                         ckpt_dir: str = "", checkpoint_every: int = 50,
-                        scene_name: str = "",
+                        scene_name: str = "", max_lanes: int = 1 << 17,
+                        renderer: str = "wq",
                         device: Union[str, torch.device] = "cuda"
                         ) -> torch.Tensor:
-    """Sample-range render with periodic on-disk accumulation: one
-    `render_wq_range` call a checkpoint range, the accumulator on the
-    device.  Output (H, W, 3) radiance means on the device."""
+    """Sample-range render with periodic on-disk accumulation, the
+    accumulator on the device.  renderer="wq" (default): one
+    `render_wq_range` call a checkpoint range.  renderer="jnp": the
+    reference's chunk loop, ranges of `render_perf`'s sample chunk under
+    `max_lanes`, each range one `render_range`, saved once
+    `checkpoint_every` samples have gathered.  Output (H, W, 3) radiance
+    means on the device."""
+    if renderer not in RENDERERS:
+        raise ValueError(f"unknown renderer {renderer!r}; have {RENDERERS}")
     dev = resolve_device(device)
     n = width * height
     meta_id = {"scene": scene_name, "width": width, "height": height,
                "max_depth": max_depth, "seed": seed, "t_min": t_min,
                "attenuate_emission": attenuate_emission,
-               "renderer": "wq"}
+               "renderer": renderer}
 
     acc_np, spp_done = (None, 0)
     if ckpt_dir:
@@ -120,15 +130,24 @@ def render_checkpointed(scene: T.Scene, cam: Camera, width: int, height: int,
     acc = (torch.from_numpy(acc_np).to(dev) if acc_np is not None
            else torch.zeros((n, 3), dtype=torch.float32, device=dev))
 
-    spp_chunk = max(1, min(spp, checkpoint_every))  # one render a range
+    if renderer == "wq":
+        spp_chunk = max(1, min(spp, checkpoint_every))  # one render a range
+    else:
+        scene = scene_on(scene, dev)
+        spp_chunk, _ = perf_schedule(n, spp, max_lanes)
     since_ckpt = 0
     s0 = spp_done
     while s0 < spp:
         sc = min(spp_chunk, spp - s0)
-        acc = acc + render_wq_range(
-            scene, cam, width, height, s0, sc, max_depth=max_depth,
-            attenuate_emission=attenuate_emission, t_min=t_min, seed=seed,
-            device=dev)
+        if renderer == "wq":
+            acc = acc + render_wq_range(
+                scene, cam, width, height, s0, sc, max_depth=max_depth,
+                attenuate_emission=attenuate_emission, t_min=t_min,
+                seed=seed, device=dev)
+        else:
+            acc = acc + render_range(scene, cam, width, height, 0, n, s0,
+                                     sc, max_depth, attenuate_emission,
+                                     t_min, seed, max_lanes)
         s0 += sc
         since_ckpt += sc
         if ckpt_dir and (since_ckpt >= checkpoint_every or s0 >= spp):

@@ -55,7 +55,16 @@
 //     NMED = 0 instantiates the kernel for a count read at run time
 //     (5..MAX_MED): its media loops run to A.n_med over MAX_MED slots a
 //     lane (ptxas keeps them in registers: no stack frame), and a tile's
-//     sphere snapshots sit in dynamic shared memory behind the fold table.
+//     sphere snapshots sit in dynamic shared memory behind the fold table;
+//   * NMED = NMED_GLOBAL, taken only for a scene past either cap (more
+//     than MAX_MED media, or a fold table over the wrapper's
+//     MAX_FOLD_BYTES), is the correctness variant: K = 1, the fold reads
+//     the table from global memory in the same record order with no
+//     staging, and a lane's per-medium snapshots (sphere, rect, triangle)
+//     live in a global scratch plane of 3 x n_med floats a lane that the
+//     wrapper allocates per call.  Fold order, merge and every float
+//     association are the other variants', so it too is bit-equal to the
+//     plain version.
 // Outputs go to separate buffers the wrapper allocates; nothing is updated
 // in place.
 
@@ -100,6 +109,8 @@ struct WaveArgs {
   const float4* fold;      // (fold_recs, 4): wave_bounce.fold_table
   int fold_recs;
   int split;               // K, threads a lane's sphere fold is split across
+  int global;              // 1: the NMED_GLOBAL variant (wave_bounce.k1_variant)
+  float* scratch;          // NMED_GLOBAL: (3, n_med, n_lanes) snapshot planes
 };
 
 namespace {
@@ -125,7 +136,10 @@ constexpr unsigned int INITIAL_STATE = 2463534242u;
 // have 227 KB; 23 media fit beside the largest table.
 constexpr int MAX_MED = 23;
 
-// Media in the scene: the template's count, or A.n_med for NMED = 0.
+// The variant past both caps: any media count, any fold table.
+constexpr int NMED_GLOBAL = -1;
+
+// Media in the scene: the template's count, or A.n_med for NMED <= 0.
 template <int NMED>
 __device__ __forceinline__ int media(int n_med) {
   return NMED > 0 ? NMED : n_med;
@@ -135,6 +149,33 @@ template <int NMED>
 __host__ __device__ constexpr int med_slots() {
   return NMED > 0 ? NMED : MAX_MED;
 }
+
+// A lane's per-medium snapshots.  The templated and run-time variants keep
+// them in a register array of med_slots<NMED>() floats; NMED_GLOBAL in a
+// column of its scratch plane (plane 0 the sphere fold's, 1 the rect
+// fold's, 2 the triangle fold's), medium m at p[m * stride].
+struct GlobalSnaps {
+  float* p;
+  size_t stride;
+  __device__ __forceinline__ float& operator[](int m) const {
+    return p[m * stride];
+  }
+};
+template <int NMED>
+struct SnapStore {
+  using type = float[med_slots<NMED>()];
+  __device__ __forceinline__ static void bind(type&, const WaveArgs&, int,
+                                              int) {}
+};
+template <>
+struct SnapStore<NMED_GLOBAL> {
+  using type = GlobalSnaps;
+  __device__ __forceinline__ static void bind(type& s, const WaveArgs& A,
+                                              int plane, int idx) {
+    s.p = A.scratch + (size_t)plane * A.n_med * A.n_lanes + idx;
+    s.stride = (size_t)A.n_lanes;
+  }
+};
 
 __device__ __forceinline__ float ld(const float* p) { return __ldg(p); }
 
@@ -315,11 +356,10 @@ __device__ __forceinline__ void fold_run(const float4* tab, int lo, int hi,
 // the staged fold table (one record a static sphere, three a moving one).
 // snap[m] is the running key after segment m.  The caller starts the
 // carry at (inf, 0).
-template <int NMED, int K>
+template <int NMED, int K, class Snaps>
 __device__ __forceinline__ void fold_share(
     const float4* tab, const int* segs, const int nm, int sub,
-    const FoldRay& r, float& bk, int& bidx,
-    float (&snap)[med_slots<NMED>()]) {
+    const FoldRay& r, float& bk, int& bidx, Snaps& snap) {
   int start = 0, moved = 0;  // moving spheres before the segment
 #pragma unroll
   for (int m = 0; m <= nm; ++m) {
@@ -339,9 +379,9 @@ __device__ __forceinline__ void fold_share(
 // minimum, and (inf, 0) without a hit, as an inf or NaN candidate never
 // enters either.  Each snapshot is the least partial key, the prefix of
 // the fold up to its segment.
-template <int NMED, int K>
+template <int NMED, int K, class Snaps>
 __device__ __forceinline__ void reduce_split(
-    const int nm, float& bk, int& bidx, float (&snap)[med_slots<NMED>()]) {
+    const int nm, float& bk, int& bidx, Snaps& snap) {
 #pragma unroll
   for (int off = 1; off < K; off <<= 1) {
     const float ok = __shfl_xor_sync(0xffffffffu, bk, off);
@@ -358,13 +398,14 @@ __device__ __forceinline__ void reduce_split(
 
 // One path segment for an advancing lane (bounce_core.advance), given its
 // sphere fold's result: the best key and index and the per-segment keys.
-template <int NMED>
-__device__ __forceinline__ void advance(const WaveArgs& A, float ox, float oy,
+// i is the lane (NMED_GLOBAL's rect and triangle snapshots are its column).
+template <int NMED, class Snaps>
+__device__ __forceinline__ void advance(const WaveArgs& A, const int i,
+                                        float ox, float oy,
                                         float oz, float dx, float dy,
                                         float dz, float tm, unsigned int rng,
                                         const float bk, const int bidx,
-                                        const float (&sph_snap)[med_slots<NMED>()],
-                                        Adv& o) {
+                                        const Snaps& sph_snap, Adv& o) {
   const int nm = media<NMED>(A.n_med);
   const float tmin_ = A.t_min;
   const float a = dx * dx + dy * dy + dz * dz;
@@ -388,7 +429,8 @@ __device__ __forceinline__ void advance(const WaveArgs& A, float ox, float oy,
   const float* R = A.rect;
   float rt = INF, ru = 0.f, rv = 0.f, rmeta = 0.f, rpar = 0.f, rar = 0.f,
         rag = 0.f, rab = 0.f, rxy = 0.f, rxz = 0.f;
-  float rect_snap[med_slots<NMED>()];
+  typename SnapStore<NMED>::type rect_snap;
+  SnapStore<NMED>::bind(rect_snap, A, 1, i);
   int start = 0;
 #pragma unroll
   for (int m = 0; m <= nm; ++m) {
@@ -432,7 +474,8 @@ __device__ __forceinline__ void advance(const WaveArgs& A, float ox, float oy,
   const float* Tb = A.tri;
   float tt = INF, tmeta = 0.f, tpar = 0.f, tnx = 0.f, tny = 0.f, tnz = 0.f,
         tar = 0.f, tag = 0.f, tab = 0.f;
-  float tri_snap[med_slots<NMED>()];
+  typename SnapStore<NMED>::type tri_snap;
+  SnapStore<NMED>::bind(tri_snap, A, 2, i);
   start = 0;
 #pragma unroll
   for (int m = 0; m <= nm; ++m) {
@@ -730,11 +773,11 @@ __device__ __forceinline__ void load_lane(const WaveArgs& A, int i,
 // exhaustion, next fixup, win record, in-chunk regeneration, work count
 // (bounce_core.wave_step).  An advancing lane's sphere fold has run
 // already: (bk, bidx, snap) is its result.
-template <int NMED>
+template <int NMED, class Snaps>
 __device__ __forceinline__ void lane_bounce(const WaveArgs& A, const int i,
                                             const LaneIn& L,
                                             const float bk, const int bidx,
-                                            const float (&snap)[med_slots<NMED>()]) {
+                                            const Snaps& snap) {
 #define IN(p) L.f[p]
   const float ox = IN(OX), oy = IN(OY), oz = IN(OZ);
   const float dx = IN(DX), dy = IN(DY), dz = IN(DZ), tm = IN(TM);
@@ -769,7 +812,8 @@ __device__ __forceinline__ void lane_bounce(const WaveArgs& A, const int i,
   Adv adv = {};  // a lane that does not advance: no hit, atlas index 0
   adv.rng = rng;
   if (alive_adv)
-    advance<NMED>(A, ox, oy, oz, dx, dy, dz, tm, rng, bk, bidx, snap, adv);
+    advance<NMED>(A, i, ox, oy, oz, dx, dy, dz, tm, rng, bk, bidx, snap,
+                  adv);
 
   // ---- termination and sky (render.hpp:58-91) ----------------------------
   float rxv = IN(RADX) + (adv.miss ? tpx * adv.sky_x : 0.f);
@@ -941,12 +985,16 @@ __device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
 //   K > 1 (narrow calls, bound by latency): 3 resident blocks of 80
 // registers, and a lane's inputs are read in one round of loads at the
 // start of its tile.
+//   NMED_GLOBAL (K = 1 only): the fold reads A.fold in place, nothing is
+// staged, and the sphere snapshots of dense entry e go to scratch plane 0
+// at lane t0 + e (inside the tile, so inside the block's span).
 template <int NMED, int K>
 __global__ void __launch_bounds__(BLOCK, K == 1 ? 4 : 3)
     wave_kernel(const WaveArgs A, const int span) {
   constexpr int TILE = BLOCK / K;
-  constexpr int SLOTS = med_slots<NMED>();
   constexpr bool EARLY = K > 1;  // the lane's inputs read before the fold
+  constexpr bool GLOBAL = NMED == NMED_GLOBAL;
+  static_assert(!GLOBAL || K == 1, "the global variant folds at K = 1");
   const int nm = media<NMED>(A.n_med);
   // the fold table, then (NMED = 0) the sphere snapshots
   extern __shared__ __align__(16) float4 s_tab[];
@@ -960,6 +1008,8 @@ __global__ void __launch_bounds__(BLOCK, K == 1 ? 4 : 3)
   float* const snap_sh = NMED > 0
                              ? &s_snap[0][0]
                              : reinterpret_cast<float*>(s_tab + A.fold_recs);
+  // where the fold reads its table
+  const float4* const tab = GLOBAL ? A.fold : s_tab;
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const unsigned bar = smem_u32(&s_bar);
@@ -996,7 +1046,7 @@ __global__ void __launch_bounds__(BLOCK, K == 1 ? 4 : 3)
     int pos = -1;
     if (n_adv > 0) {  // the same in every thread of the block
       if (!issued) {
-        if (tid == 0) stage_fold(A, s_tab, bar);
+        if (!GLOBAL && tid == 0) stage_fold(A, s_tab, bar);
         issued = true;
       }
       if (adv) {
@@ -1017,28 +1067,33 @@ __global__ void __launch_bounds__(BLOCK, K == 1 ? 4 : 3)
 
       // ---- the sphere fold, K threads a dense entry ---------------------
       if (warp * (32 / K) < n_adv) {  // the warp holds a live entry
-        if (!staged) {
+        if (!GLOBAL && !staged) {
           mbar_wait(bar, 0);
           staged = true;
         }
         const int e = tid / K, sub = tid % K;
         float bk = INF;
         int bidx = 0;
-        float snap[SLOTS];
+        typename SnapStore<NMED>::type snap;
+        SnapStore<NMED>::bind(snap, A, 0, t0 + e);
+        if (!GLOBAL) {  // (GLOBAL: fold_share writes every snapshot)
 #pragma unroll
-        for (int m = 0; m < nm; ++m) snap[m] = INF;
+          for (int m = 0; m < nm; ++m) snap[m] = INF;
+        }
         if (e < n_adv) {
           const FoldRay r{s_ray[0][e], s_ray[1][e], s_ray[2][e],
                           s_ray[3][e], s_ray[4][e], s_ray[5][e],
                           s_ray[6][e], s_ray[7][e], s_ray[8][e]};
-          fold_share<NMED, K>(s_tab, A.sph_segs, nm, sub, r, bk, bidx, snap);
+          fold_share<NMED, K>(tab, A.sph_segs, nm, sub, r, bk, bidx, snap);
         }
         if (K > 1) reduce_split<NMED, K>(nm, bk, bidx, snap);
         if (e < n_adv && sub == 0) {
           s_bk[e] = bk;
           s_bidx[e] = bidx;
+          if (!GLOBAL) {
 #pragma unroll
-          for (int m = 0; m < nm; ++m) snap_sh[m * TILE + e] = snap[m];
+            for (int m = 0; m < nm; ++m) snap_sh[m * TILE + e] = snap[m];
+          }
         }
       }
       __syncthreads();
@@ -1046,22 +1101,29 @@ __global__ void __launch_bounds__(BLOCK, K == 1 ? 4 : 3)
 
     // ---- the rest, one thread a lane ------------------------------------
     if (mine) {
-      float bk = INF, snap[SLOTS];
+      float bk = INF;
       int bidx = 0;
+      typename SnapStore<NMED>::type snap;
+      // GLOBAL: the fold's column, read only by a lane that advanced
+      SnapStore<NMED>::bind(snap, A, 0, t0 + (pos >= 0 ? pos : 0));
+      if (!GLOBAL) {
 #pragma unroll
-      for (int m = 0; m < nm; ++m) snap[m] = INF;
+        for (int m = 0; m < nm; ++m) snap[m] = INF;
+      }
       if (pos >= 0) {
         bk = s_bk[pos];
         bidx = s_bidx[pos];
+        if (!GLOBAL) {
 #pragma unroll
-        for (int m = 0; m < nm; ++m) snap[m] = snap_sh[m * TILE + pos];
+          for (int m = 0; m < nm; ++m) snap[m] = snap_sh[m * TILE + pos];
+        }
       }
       if (!EARLY) load_lane(A, i, in);
       lane_bounce<NMED>(A, i, in, bk, bidx, snap);
     }
   }
   // the copy must land before the block's shared memory is released
-  if (issued && !staged) mbar_wait(bar, 0);
+  if (!GLOBAL && issued && !staged) mbar_wait(bar, 0);
 }
 
 // Launch one bounce, or with `per_sm` set only report the resident blocks
@@ -1070,7 +1132,9 @@ template <int NMED, int K>
 cudaError_t run(const WaveArgs& a, cudaStream_t stream, int* per_sm) {
   const auto kern = wave_kernel<NMED, K>;
   const int smem =
-      a.fold_recs * 16 + (NMED > 0 ? 0 : a.n_med * (BLOCK / K) * 4);
+      NMED == NMED_GLOBAL
+          ? 0
+          : a.fold_recs * 16 + (NMED > 0 ? 0 : a.n_med * (BLOCK / K) * 4);
   cudaError_t err;
   if (smem > 48 * 1024 &&
       (err = cudaFuncSetAttribute(
@@ -1117,6 +1181,9 @@ cudaError_t run_split(const WaveArgs& a, cudaStream_t stream, int* per_sm) {
 }
 
 cudaError_t run_any(const WaveArgs& a, cudaStream_t stream, int* per_sm) {
+  if (a.global)
+    return a.split == 1 ? run<NMED_GLOBAL, 1>(a, stream, per_sm)
+                        : cudaErrorInvalidValue;
   switch (a.n_med) {
     case 1: return run_split<1>(a, stream, per_sm);
     case 2: return run_split<2>(a, stream, per_sm);
@@ -1133,7 +1200,7 @@ cudaError_t run_any(const WaveArgs& a, cudaStream_t stream, int* per_sm) {
 
 // Launch one bounce on `stream`; returns cudaGetLastError() after the
 // launch (0 = launched).  Media counts 1..4, the run-time count (5..MAX_MED)
-// and K = 1, 2, 4, ..., 32 are instantiated.
+// and K = 1, 2, 4, ..., 32 are instantiated, and NMED_GLOBAL at K = 1.
 extern "C" int wave_bounce_launch(const WaveArgs* a, void* stream) {
   if (a->n_lanes <= 0) return 0;
   return (int)run_any(*a, static_cast<cudaStream_t>(stream), nullptr);

@@ -5,8 +5,10 @@ numpy seed, with every case the kernel's policy branches on: live and
 dead lanes, lanes that regenerate within their chunk, pending ALBEDO and
 EMIT image-texture fixups, and lanes whose pending fixup the texel service
 does not cover (they stall).  `tie_scene` is a scene made for equal
-sphere keys across media segments, and `media_scene` one with more media
-than the kernel has templated instantiations for.  `agreement` compares two bounce
+sphere keys across media segments, `media_scene` one with more media
+than the kernel has templated instantiations for (past 23, more than its
+shared-memory variants take), and `sphere_scene` one whose fold table is
+too large to stage in shared memory.  `agreement` compares two bounce
 outputs plane by plane.  The tests use them against the reference
 package on the CPU; `chip_smoke.py` and the card tests use them for the
 kernel against its plain version on the card.
@@ -141,13 +143,26 @@ _SMOKE = [(("sphere", (2.0, 0.6, 1.2), 0.6), 0.3, (0.9, 0.8, 0.7)),
           (("sphere", (1.0, 0.5, -3.0), 0.5), 1.0, (0.7, 0.7, 0.7))]
 
 
+def _small_smoke(j: int):
+    """The j-th small smoke volume after _SMOKE's: 0.3-sized spheres and
+    boxes in turn on a grid over the ground in view."""
+    x, z = -3.0 + 1.2 * (j % 8), -2.5 + 1.6 * (j // 8)
+    if j % 2 == 0:
+        boundary = ("sphere", (x, 0.35, z), 0.3)
+    else:
+        boundary = ("box", (x - 0.3, 0.0, z - 0.3), (x + 0.3, 0.6, z + 0.3))
+    return boundary, 0.4 + 0.1 * (j % 5), (0.7, 0.8, 0.9)
+
+
 def media_scene(aspect: float, n_media: int = 6, device="cuda"
                 ) -> Tuple[Scene, Camera]:
     """The final scene (whose smoke ball comes last) with n_media - 1 more
-    smoke volumes, sphere and box boundaries in turn, all in view.  A
-    static and a moving sphere follow each medium, so that every media
-    segment of the sphere fold after the final scene's own holds spheres
-    of both kinds: past the 4 media counts the kernel is templated for."""
+    smoke volumes, sphere and box boundaries in turn, all in view: the
+    five of `_SMOKE`, then small ones (`_small_smoke`).  A static and a
+    moving sphere follow each medium, so that every media segment of the
+    sphere fold after the final scene's own holds spheres of both kinds:
+    past the 4 media counts the kernel is templated for, and past 23 the
+    shared-memory variants' cap."""
     from ..scene.presets import final_scene_builder
     sb, cam = final_scene_builder(aspect)
     for i in range(n_media):
@@ -157,8 +172,28 @@ def media_scene(aspect: float, n_media: int = 6, device="cuda"
                              1.0, 0.25, sb.lambertian((0.2, 0.3 + 0.1 * i,
                                                        0.5)))
         if i < n_media - 1:
-            boundary, density, albedo = _SMOKE[i % len(_SMOKE)]
+            n = len(_SMOKE)
+            boundary, density, albedo = (_SMOKE[i] if i < n
+                                         else _small_smoke(i - n))
             sb.add_constant_medium(boundary, density, albedo)
+    return sb.build(device=resolve_device(device)), cam
+
+
+def sphere_scene(aspect: float, n_static: int = 13000, seed: int = 0,
+                 device="cuda") -> Tuple[Scene, Camera]:
+    """The final scene with small static spheres (radius 0.04, on the
+    ground in view, placed from a numpy seed) added until it holds
+    `n_static` static spheres: at 16 bytes a static record (48 a moving
+    one), its fold table passes the shared-memory variants' 192 KB."""
+    from ..scene.presets import final_scene_builder
+    sb, cam = final_scene_builder(aspect)
+    rs = np.random.RandomState(seed)
+    have = sum(1 for sp in sb._spheres if sp[3] == sp[4])
+    mats = [sb.lambertian((0.8, 0.3, 0.3)), sb.metal((0.8, 0.8, 0.7), 0.2),
+            sb.lambertian((0.3, 0.6, 0.8)), sb.dielectric(1.5, (1, 1, 1))]
+    for k in range(max(n_static - have, 0)):
+        x, z = rs.uniform(-11.0, 11.0), rs.uniform(-11.0, 11.0)
+        sb.add_sphere((float(x), 0.04, float(z)), 0.04, mats[k % len(mats)])
     return sb.build(device=resolve_device(device)), cam
 
 

@@ -13,6 +13,14 @@ packed tables keep the reference's row layouts: sph 15 rows, rect 15,
 tri 17, med 17, spec 11 x 16, cam 23.  One more table, `fold`, holds the
 sphere fold's columns again as 16-byte records (`fold_table`), the form
 the kernel stages in shared memory.
+
+The kernel has three kinds of instantiation (`k1_variant`): templated for
+1-4 media, one for a media count read at run time (5..MAX_MED), both with
+the fold table staged in shared memory; and a global-memory variant for a
+scene past either cap (more than MAX_MED media, or a fold table over
+MAX_FOLD_BYTES), which reads the table in place and keeps a lane's
+per-medium snapshots in a scratch plane.  All three are bit-equal to the
+plain version; only the global one takes any scene the reference takes.
 """
 from __future__ import annotations
 
@@ -33,9 +41,20 @@ __all__ = ["FIX_ALBEDO", "FIX_EMIT", "FIX_NONE", "LANE", "SceneTables",
            "zero_fix", "wave_bounce", "wave_bounce_plain"]
 
 DEF_TILE_ROWS = 64     # lane-count quantum on the card: rows % 64 == 0
-MAX_MED = 23           # media the CUDA kernel takes (csrc: MAX_MED)
+MAX_MED = 23           # media the shared-memory variants take (csrc: MAX_MED)
 SPLITS = (1, 2, 4, 8, 16, 32)   # threads a lane's sphere fold can take
-MAX_FOLD_BYTES = 192 * 1024     # the fold table is staged in shared memory
+MAX_FOLD_BYTES = 192 * 1024     # fold tables the shared-memory variants stage
+
+
+def k1_variant(n_med: int, fold_bytes: int) -> str:
+    """Which K1 instantiation takes a scene of `n_med` media slots and a
+    `fold_bytes`-byte fold table: "templated" for 1-4 media, "run-time"
+    for 5..MAX_MED, both staging the table in shared memory; "global"
+    (the table read in place, snapshots in a scratch plane, K = 1) once
+    the scene passes either cap."""
+    if not 1 <= n_med <= MAX_MED or fold_bytes > MAX_FOLD_BYTES:
+        return "global"
+    return "templated" if n_med <= 4 else "run-time"
 
 
 class SceneTables(NamedTuple):
@@ -322,7 +341,8 @@ class _Args(ctypes.Structure):
                    ("n_med", ctypes.c_int), ("max_depth", ctypes.c_int),
                    ("attenuate", ctypes.c_int), ("seed", ctypes.c_uint),
                    ("t_min", ctypes.c_float), ("fold", _P),
-                   ("fold_recs", ctypes.c_int), ("split", ctypes.c_int)])
+                   ("fold_recs", ctypes.c_int), ("split", ctypes.c_int),
+                   ("global_", ctypes.c_int), ("scratch", _P)])
 
 
 FILL_THREADS = 1 << 16  # fold threads that keep the card busy
@@ -367,11 +387,13 @@ def _lib() -> ctypes.CDLL:
 
 def occupancy(n_med: int, split: int, fold_recs: int) -> int:
     """Resident blocks an SM of the kernel instantiated for `n_med` media
-    at split K with a fold table of `fold_recs` records, as the CUDA
+    at split K with a fold table of `fold_recs` records (the variant
+    `k1_variant` picks; the global one only at K = 1), as the CUDA
     runtime reports it."""
     lib = _lib()
     a = _Args()
     a.n_med, a.split, a.fold_recs = n_med, split, fold_recs
+    a.global_ = int(k1_variant(n_med, fold_recs * 16) == "global")
     blocks = ctypes.c_int(0)
     err = lib.wave_bounce_occupancy(ctypes.byref(a), ctypes.byref(blocks))
     if err != 0:
@@ -388,12 +410,6 @@ def _launch(tables: SceneTables, st: WaveState, fix: FixState,
     sh = tuple(st.ox.shape)
     f32 = torch.float32
     n_med = tables.med.shape[1]
-    if not 1 <= n_med <= MAX_MED:
-        raise ValueError(
-            f"wave_bounce: the kernel takes 1..{MAX_MED} media slots, the "
-            f"scene packs {n_med}: above 4 media a tile's sphere snapshots "
-            f"take 1 KB of shared memory a medium, beside a fold table of "
-            f"up to {MAX_FOLD_BYTES // 1024} KB")
     a = _Args()
     for name, rows_ in (("sph", 15), ("rect", 15), ("tri", 17), ("med", 17)):
         t = getattr(tables, name)
@@ -406,10 +422,7 @@ def _launch(tables: SceneTables, st: WaveState, fix: FixState,
                         "tri_segs")
     a.spec = _check(tables.spec, f32, (11, MAX_SPECIAL_TEX), dev, "spec")
     n_rec = tables.fold.shape[0]
-    if n_rec * 16 > MAX_FOLD_BYTES:
-        raise ValueError(f"wave_bounce: the sphere fold table takes "
-                         f"{n_rec * 16} bytes, more than the "
-                         f"{MAX_FOLD_BYTES} the kernel stages")
+    variant = k1_variant(n_med, n_rec * 16)
     a.fold = _check(tables.fold, f32, (n_rec, 4), dev, "fold")
     if a.fold % 16:
         raise ValueError("wave_bounce: the fold table must be 16-byte "
@@ -435,7 +448,19 @@ def _launch(tables: SceneTables, st: WaveState, fix: FixState,
     a.rng_out, a.win, a.t_hit = (rng_out.data_ptr(), win.data_ptr(),
                                  t_hit.data_ptr())
     a.n_lanes = st.ox.numel()
-    a.split = split_for(a.n_lanes) if split is None else split
+    scratch = None
+    if variant == "global":
+        # one lane a thread; the sphere, rect and triangle folds'
+        # per-medium snapshots of every lane, allocated per call
+        if split not in (None, 1):
+            raise ValueError(f"wave_bounce: a scene past the shared-memory "
+                             f"caps folds at K = 1, not {split}")
+        a.split, a.global_ = 1, 1
+        scratch = torch.empty(max(3 * n_med * a.n_lanes, 1), dtype=f32,
+                              device=dev)
+        a.scratch = scratch.data_ptr()
+    else:
+        a.split = split_for(a.n_lanes) if split is None else split
     if a.split not in SPLITS:
         raise ValueError(f"wave_bounce: split {a.split} is not one of "
                          f"{SPLITS}")

@@ -14,11 +14,13 @@ device, here each rank runs its own shard and the collectives are
 explicit.
 
 Without a process group the mesh is 1x1 and every reduction is a no-op,
-so the same code runs in one process.  Not ported yet, since they need the
-jnp oracle engine: the reference's jnp renderer (`renderer="jnp"`, ROADMAP
-Queue 1 item 2), and the train step's "jnp" backend and silhouette terms
-(`backend`, `geometry_edge`, Queue 1 item 3).  The port renders with the
-work queue and differentiates by record and replay only.
+so the same code runs in one process.  Both of the reference's renderers
+are here: the work queue (`renderer="wq"`, the default) and the oracle
+engine's (`renderer="jnp"`); and both gradient backends: record and replay
+(`backend="queued"`, the default, the reference's "pallas") and autograd
+through `trace(differentiable=True)` (`backend="jnp"`), with the
+silhouette terms of `diff.edge` (`geometry_edge`) added before the
+all-reduce.
 """
 from __future__ import annotations
 
@@ -34,7 +36,9 @@ from ..core.camera import Camera
 from ..core.device import resolve_device
 from ..core.vec import fdiv
 from ..diff.params import combine, leaves, partition, tree_map, with_leaves
-from ..diff.queued_vjp import render_grad_fb
+from ..diff.queued_vjp import T_MIN, render_grad_fb
+from ..engine.integrator import (camera_rays, perf_lanes, render_range,
+                                 scene_on, trace)
 from ..engine.wq import (DEF_TILE_ROWS, DEF_WINDOW, CPU_TILE_ROWS,
                          CPU_WINDOW, MAX_CHUNK, pick_chunk, wq_window_fb)
 from ..scene import types as T
@@ -169,17 +173,33 @@ def shard_plan(width: int, height: int, spp: int, n_tiles: int, n_spp: int,
 def render_sharded(scene: T.Scene, cam: Camera, width: int, height: int,
                    spp: int, mesh: Mesh, max_depth: int = 50,
                    attenuate_emission: bool = False, t_min: float = 1e-3,
-                   seed: int = 0, tile_rows: Optional[int] = None,
+                   seed: int = 0, renderer: str = "wq",
+                   tile_rows: Optional[int] = None,
                    window: Optional[int] = None,
                    return_stats: bool = False):
     """Forward render over the mesh: this rank renders its tile's pixels
-    over its share of the samples (`engine.wq.wq_window_fb`), the partial
-    sums are summed over the spp axis and divided by spp.  Returns this
-    rank's tile of the frame, (n_pix_loc, 3), row i for pixel
-    tile * n_pix_loc + i (rows past the frame are zero); with
-    `return_stats` also this rank's (traced_segments, bounce_iters,
-    lane_steps).  `parallel.multihost.assemble_image` puts the tiles
-    together.  The reference's "wq" renderer; its "jnp" one is not ported."""
+    over its share of the samples, the partial sums are summed over the
+    spp axis and divided by spp.  Returns this rank's tile of the frame,
+    (n_pix_loc, 3), row i for pixel tile * n_pix_loc + i (rows past the
+    frame are zero); `parallel.multihost.assemble_image` puts the tiles
+    together.
+
+    renderer="wq" (default): the work queue (`engine.wq.wq_window_fb`);
+    with `return_stats` also this rank's (traced_segments, bounce_iters,
+    lane_steps).  renderer="jnp": the reference's fallback (its
+    `mesh.py:122-158`), `trace` with exact spheres on the (pixel, sample)
+    streams of samples [spp_idx * local_spp, ...) with local_spp =
+    ceil(spp / n_spp), samples past spp left out; the lanes run in
+    `render_perf`'s batches (`render_range`), so on a 1x1 mesh the frame
+    is `render_perf`'s."""
+    if renderer == "jnp":
+        if return_stats:
+            raise ValueError("return_stats is the work-queue renderer's")
+        return _render_sharded_jnp(scene, cam, width, height, spp, mesh,
+                                   max_depth, attenuate_emission, t_min,
+                                   seed)
+    if renderer != "wq":
+        raise ValueError(f"unknown renderer {renderer!r}; have 'wq', 'jnp'")
     dev = mesh.device
     cuda = dev.type == "cuda"
     tile_rows = tile_rows or (DEF_TILE_ROWS if cuda else CPU_TILE_ROWS)
@@ -199,6 +219,25 @@ def render_sharded(scene: T.Scene, cam: Camera, width: int, height: int,
     return fb
 
 
+def _render_sharded_jnp(scene, cam, width, height, spp, mesh, max_depth,
+                        attenuate_emission, t_min, seed):
+    dev = mesh.device
+    scene = scene_on(scene, dev)
+    n_pix = width * height
+    n_pix_loc = _ceil_div(n_pix, mesh.n_tiles)
+    local_spp = _ceil_div(spp, mesh.n_spp)
+    p_lo = mesh.tile * n_pix_loc
+    npx = min(max(n_pix - p_lo, 0), n_pix_loc)
+    s_lo = mesh.spp * local_spp
+    n_s = min(max(spp - s_lo, 0), local_spp)
+    acc = torch.zeros((n_pix_loc, 3), dtype=torch.float32, device=dev)
+    if npx and n_s:
+        acc[:npx] = render_range(scene, cam, width, height, p_lo, npx, s_lo,
+                                 n_s, max_depth, attenuate_emission, t_min,
+                                 seed)
+    return fdiv(mesh.psum(acc, "spp"), float(spp))
+
+
 # ---------------------------------------------------------------------------
 # Distributed differentiable training step (inverse rendering)
 # ---------------------------------------------------------------------------
@@ -207,7 +246,8 @@ def make_train_step(static_scene, static_cam_tree, width: int, height: int,
                     local_spp: int, max_depth: int, lr: float = 0.05,
                     grad_filter: Optional[Callable] = None,
                     device: Union[str, torch.device] = "cuda",
-                    mesh: Optional[Mesh] = None):
+                    mesh: Optional[Mesh] = None, backend: str = "queued",
+                    geometry_edge=None, edge_kwargs: Optional[dict] = None):
     """Build an SGD step for inverse rendering: step(params, target,
     pix_ids) -> (params', loss).
 
@@ -215,9 +255,20 @@ def make_train_step(static_scene, static_cam_tree, width: int, height: int,
     (`scene_camera_params`); target: the (npx, 3) image of the pixels
     `pix_ids`, which must be a contiguous range (the canonical arange);
     loss = sum((img - target)^2) / (W*H*3), the reference's mean over the
-    global pixel population.  The gradients come from the record-and-replay
-    route (`diff.queued_vjp.render_grad_fb`), the reference's "pallas"
-    backend.
+    global pixel population.
+
+    backend="queued" (default): the gradients come from the
+    record-and-replay route (`diff.queued_vjp.render_grad_fb`), the
+    reference's "pallas" backend.  backend="jnp": autograd through
+    `trace(differentiable=True)` with attenuated emission, the oracle that
+    tests/test_grad.py holds the other route against.  Both routes trace
+    with the reference's ray epsilon, `queued_vjp.T_MIN`.
+
+    geometry_edge: sphere indices whose centre (c0) and radius gradients
+    get the silhouette term of `diff.edge.sphere_silhouette_grad`, each
+    rank against its own pixels' loss cotangent 2*err/(W*H*3), added
+    before the all-reduce so that the tiles' sum assembles the whole
+    film's integral; `edge_kwargs` go to it (n_edge, spp_edge, ...).
 
     Without a mesh the step runs on `device`, every pixel in one process.
     With one it runs on the mesh's device: each rank takes its tile's
@@ -226,10 +277,12 @@ def make_train_step(static_scene, static_cam_tree, width: int, height: int,
     local_spp, (spp + 1) * local_spp) of them; the loss and the gradients
     are summed over tiles and averaged over spp before `grad_filter` (which
     maps the gradient tree, None at static leaves) and the update p -
-    lr*g, so every rank ends with the same params.  The reference's "jnp"
-    backend and `geometry_edge` are not ported."""
+    lr*g, so every rank ends with the same params."""
+    if backend not in ("queued", "jnp"):
+        raise ValueError(f"unknown backend {backend!r}; have 'queued', 'jnp'")
     if mesh is not None:
         device = mesh.device
+    device = resolve_device(device)
     grad_f_cache: Dict[int, object] = {}
 
     def get_grad_f(npx: int):
@@ -238,6 +291,38 @@ def make_train_step(static_scene, static_cam_tree, width: int, height: int,
                 width, height, npx, local_spp, max_depth=max_depth,
                 device=device)
         return grad_f_cache[npx]
+
+    def render_jnp(scene_, cam_, pix_ids, samp_base):
+        npx = pix_ids.shape[0]
+        lanes_pix, _, state = perf_lanes(pix_ids.to(device).long(),
+                                         samp_base, local_spp, 0)
+        state, o, d, t = camera_rays(cam_, width, height, lanes_pix, state)
+        _, rad = trace(scene_on(scene_, device), o, d, t, state, max_depth,
+                       attenuate_emission=True, t_min=T_MIN,
+                       differentiable=True)
+        return torch.stack([c.reshape(local_spp, npx).mean(0) for c in rad],
+                           dim=-1)
+
+    def edge_terms(scene_, cam_, err, pix_ids, grads):
+        """The silhouette terms of the configured spheres against this
+        rank's loss cotangent dL/dimg = 2*err/(W*H*3)."""
+        from ..diff.edge import sphere_silhouette_grad
+        ct = torch.zeros((width * height, 3), dtype=torch.float32,
+                         device=device)
+        ct[pix_ids.to(device).long()] = fdiv(2.0 * err.detach(),
+                                             float(width * height * 3))
+        ct = ct.reshape(height, width, 3)
+        scene_g, cam_g = grads
+        sph = scene_g.spheres
+        c0x, c0y, c0z, rad = (x.clone() for x in (*sph.c0, sph.radius))
+        for si in geometry_edge:
+            eg = sphere_silhouette_grad(scene_on(scene_, device), cam_,
+                                        width, height, int(si), ct,
+                                        **dict(edge_kwargs or {}))
+            for g, e in zip((c0x, c0y, c0z, rad), (*eg.center, eg.radius)):
+                g[int(si)] += e.to(g.device)
+        sph = sph._replace(c0=type(sph.c0)(c0x, c0y, c0z), radius=rad)
+        return (scene_g._replace(spheres=sph), cam_g)
 
     def step(params, target: torch.Tensor, pix_ids: torch.Tensor
              ) -> Tuple[object, torch.Tensor]:
@@ -255,11 +340,20 @@ def make_train_step(static_scene, static_cam_tree, width: int, height: int,
         scene_, cam_ = combine(with_leaves(params, xs),
                                (static_scene, static_cam_tree))
         npx = pix_ids.shape[0]
-        img = get_grad_f(npx)(scene_, cam_, int(pix_ids[0]), samp_base)
+        if backend == "jnp":
+            img = render_jnp(scene_, cam_, pix_ids, samp_base)
+        else:
+            img = get_grad_f(npx)(scene_, cam_, int(pix_ids[0]), samp_base)
         err = img - target
         loss = fdiv((err * err).sum(), float(width * height * 3))
-        gs = torch.autograd.grad(loss, xs)
+        # a leaf the render never reads (the jnp trace reads fewer than
+        # the replay) has a zero gradient, as under jax.grad
+        gs = [torch.zeros_like(x) if g is None else g for x, g in zip(
+            xs, torch.autograd.grad(loss, xs, allow_unused=True))]
         loss = loss.detach()
+        if geometry_edge:
+            gs = leaves(edge_terms(scene_, cam_, err, pix_ids,
+                                   with_leaves(params, list(gs))))
         if mesh is not None:
             # tiles sum partial pixel populations; spp averages independent
             # Monte-Carlo estimates of the same gradient: one flat buffer on

@@ -24,7 +24,7 @@ def test_config_presets_and_validation():
     cfg2 = RenderConfig.for_preset("cornell_box", spp=7, renderer="wq",
                                    device="cpu")
     assert cfg2.spp == 7 and cfg2.renderer == "wq" and cfg2.device == "cpu"
-    for bad in (dict(scene="nope"), dict(renderer="parity"),
+    for bad in (dict(scene="nope"), dict(renderer="nope"),
                 dict(renderer="cuda"), dict(spp=0), dict(width=-1),
                 dict(device="tpu")):
         with pytest.raises(ValueError):
@@ -43,7 +43,8 @@ def _render_choices(parser, flag):
 
 def test_every_cli_renderer_choice_validates():
     choices = _render_choices(cli._build_parser(), "--renderer")
-    assert choices == list(RENDERERS) == ["auto", "wq"]
+    assert choices == list(RENDERERS) == ["auto", "wq", "wavefront",
+                                          "fused", "perf", "parity"]
     for ch in choices:
         RenderConfig(renderer=ch).validate()        # must not raise
     assert _render_choices(cli._build_parser(), "--device") == ["cuda", "cpu"]

@@ -4,7 +4,9 @@ One reference render: the reference package's `render_wq` of cornell_box
 at 16x16, 4 spp, depth 6, with the tile rows and window of the port's CPU
 defaults (`engine/wq.py`: 8 and 3), its kernel in interpret mode.  The
 port renders the same preset through `cli.main(["render", ...,
-"--device", "cpu"])`, the plain PyTorch version of the bounce kernel.  The
+"--device", "cpu", "--renderer", "wq"])` (on the CPU `auto` is the
+wavefront engine, as in the reference), the plain PyTorch version of the
+bounce kernel.  The
 envelope is tests/test_torch_wq.py's: at most 3% of pixels beyond 5e-3
 (knife-edge paths, docs/PERF_NOTES.md:67-75), traced segments within 0.2%
 and the same number of bounce iterations.
@@ -65,7 +67,8 @@ def cli_render(tmp_path_factory):
             rc = cli.main(["render", "--scene", "cornell_box", "--width",
                            str(W), "--height", str(H), "--spp", str(SPP),
                            "--max-depth", str(DEPTH), "--device", "cpu",
-                           "-o", png, "--metrics", "--ppm"])
+                           "--renderer", "wq", "-o", png, "--metrics",
+                           "--ppm"])
     finally:
         mp.undo()
     assert len(seen) == 1

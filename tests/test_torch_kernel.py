@@ -11,7 +11,10 @@ lanes whose win agrees.  Forced to each split of its sphere fold (K
 threads a lane), the kernel is bit-equal to the plain version on every
 lane and plane, on the final scene and on `probe.tie_scene`, whose equal
 sphere keys must go to the lowest index, and with 5 and 6 media
-(`probe.media_scene`) through its run-time media count.  The nearest-sphere spike (K2)
+(`probe.media_scene`) through its run-time media count.  Past the
+shared-memory variants' caps (24 and 30 media, and `probe.sphere_scene`'s
+13,000 static spheres, a fold table over 192 KB) the global-memory variant
+is bit-equal too.  The nearest-sphere spike (K2)
 is bit-equal to its plain version on the card, at the wrapper's K and
 forced to every K of `spike_pmat.SPLITS`, at 64 and 4096 rows,
 on the tie table (`make_tie_inputs`) and on degenerate rays
@@ -116,13 +119,29 @@ def test_run_time_media_count_is_bit_equal_on_card(cuda_device, n_media, k):
 
 
 @pytest.mark.cuda
-def test_kernel_rejects_more_media_than_it_takes(cuda_device):
-    _, st, fix, texel, srv = _case(cuda_device, rows=8)
-    scene, cam = probe.media_scene(W / H, WB.MAX_MED + 1, cuda_device)
-    tables = WB.pack_scene(scene)._replace(
-        cam=WB.pack_camera(cam, W, H, cuda_device), seed=11)
-    with pytest.raises(ValueError, match="media slots"):
-        WB.wave_bounce(tables, st, fix, texel, srv, tile_rows=8, **KW)
+@pytest.mark.parametrize("scene", ["media24", "media30", "spheres13000"])
+def test_scene_past_the_caps_is_bit_equal_on_card(cuda_device, scene):
+    """More media than the shared-memory variants take, or a fold table
+    larger than they stage: the global variant, once refused."""
+    build = {"media24": lambda a, device: probe.media_scene(
+                 a, WB.MAX_MED + 1, device),
+             "media30": lambda a, device: probe.media_scene(a, 30, device),
+             "spheres13000": probe.sphere_scene}[scene]
+    tables, st, fix, texel, srv = _case(cuda_device, rows=16, build=build)
+    assert WB.k1_variant(tables.med.shape[1],
+                         tables.fold.shape[0] * 16) == "global"
+    before = WB.wave_bounce.launches
+    kern = WB.wave_bounce(tables, st, fix, texel, srv, tile_rows=8, **KW)
+    torch.cuda.synchronize()
+    assert WB.wave_bounce.launches == before + 1
+    plain = WB.wave_bounce_plain(tables, st, fix, texel, srv, **KW)
+    agree = probe.agreement(kern, plain)
+    assert all(agree[p] == 1.0 for p in probe.INT_PLANES), agree
+    assert all(agree[p + "_max_ulp"] == 0.0
+               for p in probe.FLOAT_PLANES + probe.FIX_PLANES), agree
+    with pytest.raises(ValueError, match="K = 1"):
+        WB.wave_bounce(tables, st, fix, texel, srv, tile_rows=8, _split=4,
+                       **KW)
 
 
 @pytest.mark.cuda
