@@ -52,9 +52,9 @@ Phases, each of which raises on failure (exit code != 0):
 7. gradient route, small: the final scene at 32x24, 2 spp, depth 8,
    recorded and differentiated with device="cuda" (the kernel) and
    device="cpu" (the plain version): records equal, per-leaf gradients
-   within 2e-3 relative L2 (the replay's rsqrt and the order of its
-   gradient sums differ between the two devices), and two gradient calls
-   on the card compared;
+   within 2e-3 relative L2 (the order of the replay's gradient sums
+   differs between the two devices; its rounding is pinned, `core.vec.
+   frsqrt`), and two gradient calls on the card compared;
 8. gradient route at full width: tools/bench_grad.py's measurement (the
    final scene at 400x300, 4 spp, depth 50): `ok`, the kernel's launches
    equal to the recorded steps, then a second recording in which every
@@ -123,7 +123,28 @@ Phases, each of which raises on failure (exit code != 0):
    `make_train_step(backend="jnp", geometry_edge=[i])` steps at phase 9's
    setting (the metal sphere's silhouette), the loss falling and the
    colour gradient within 2e-2 of a finite difference of the port's own
-   render.
+   render;
+14. the one-bounce driver and the pinned gradient route, both through K1:
+   (a) `render_wq(window=1)` of the final scene at 32x24, 4 spp, depth 8
+   through the kernel and the plain version (frames equal), then at
+   800x600, depth 50, 8 spp: wall, Mray/s, iterations = K1's launches,
+   the loop's host reads (one a bounce) and the synchronising calls of a
+   second run (bit-equal to the first), segments within 0.2% of phase
+   11's windowed frame and the frame inside its envelope, the fifth
+   launch kept and held bit-equal to the plain version (times, bound);
+   (b) `make_render_grad(queued=False)` at phase 8's setting: 50 launches
+   at 483,328 lanes, a kept launch, a second recording with every launch
+   bit-equal to the plain version, `forward_s`, `value_and_grad_s`, the
+   residual bytes and the peak memory; against `make_render_grad(queued=
+   True)` on phase 9's perturbed params and target: the forward inside the
+   envelope, the loss within 1e-5 relative, each leaf's gradient
+   (relative L2; the shutter-time leaves the pinned replay detaches left
+   out) printed, and within PINNED_RTOL on the loss over the pixels whose
+   paths touch no box (the reference's pinned replay names a box side by
+   the scan id all six sides share); (c) `render_grad_fn` on 4,096 seeded
+   (pixel, sample) pairs, which `make_render_grad` refuses: the kernel and
+   the plain version on the CPU give equal records and radiance, and the
+   mean radiance's gradients within 2e-3 relative L2 (phase 7's contract).
 Kernel times are CUDA events around 20 launches queued behind a device
 sleep, so the launches run back to back and host launch latency is not
 in them.  Then the kernel table as one JSON line: K1 once for the forward
@@ -139,7 +160,10 @@ times and difference, and the (b) frames' largest difference from
 `render_wq` as "frame_err"), and K1's global variant (phase 3's
 `render_wq` launches past the caps, the 30-media full-width launch's
 times, every case under "cases"); K1's forward row also holds phase 3's 4-
-and 6-media launches under "media"; the card's name and power limit; and last
+and 6-media launches under "media", and phase 14's launches of the
+one-bounce driver and the pinned route ("launches_one_bounce",
+"launches_pinned") with their kept launches' times and bounds
+("one_bounce", "pinned"); the card's name and power limit; and last
 {"ok": true, "device": {...}}.  Nothing here imports JAX.
 """
 from __future__ import annotations
@@ -656,9 +680,15 @@ def main(old_kernel=None, old_pmat=None) -> list:
     # the gradient route's time a launch: each stage's, by its launches
     grad_row["ms"] = sum(n * w["ms"] for n, w in zip(
         stage_launches, grad_row["widths"])) / sum(stage_launches)
-    app_row = phase_app(dev)
+    app_row, frame8 = phase_app(dev)
     sharded_row = phase_sharded(dev, frame, train_first)
     phase_oracle(dev)
+    one = phase_one_bounce(dev, frame8)
+    pinned = phase_pinned(dev, train_first)
+    kernel_row.update(launches_one_bounce=one["launches"],
+                      one_bounce=one["kept"],
+                      launches_pinned=pinned["launches"],
+                      pinned=pinned["kept"])
     return [kernel_row, grad_row, pmat_row, app_row, sharded_row, caps_row]
 
 
@@ -1286,9 +1316,10 @@ def check_kept(what: str, kept: keep_launch, tag: str = "11") -> dict:
     return row
 
 
-def phase_app(dev) -> dict:
+def phase_app(dev) -> tuple:
     """11. The app surface through the command line; returns K1's
-    kernels-line row for the app path."""
+    kernels-line row for the app path, and the final scene's 8-spp
+    `render_wq` frame and segments (for phase 14)."""
     import shutil
     from path_tracer_tpu_torch import cli
     from path_tracer_tpu_torch.engine import checkpoint as CK
@@ -1348,11 +1379,13 @@ def phase_app(dev) -> dict:
                                  f"{p.width}")
         scene, cam = cli.preset_scene(name, p.width, p.height, dev)
         t0 = time.perf_counter()
-        _, segs, iters, _ = render_wq(scene, cam, p.width, p.height, APP_SPP,
-                                      p.max_depth, return_stats=True,
-                                      device=dev)
+        img, segs, iters, _ = render_wq(scene, cam, p.width, p.height,
+                                        APP_SPP, p.max_depth,
+                                        return_stats=True, device=dev)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
+        if name == "final_scene":
+            frame8 = dict(frame=img.cpu().numpy(), segs=segs)
         log(f"[11] render {name} {p.width}x{p.height}x{APP_SPP} depth "
             f"{p.max_depth}: {json.dumps(metrics)}; render_wq alone "
             f"{dt:.4f} s, {segs / dt / 1e6:.3f} Mray/s, {iters} iterations")
@@ -1449,7 +1482,7 @@ def phase_app(dev) -> dict:
                                                for r in kept_rows.values()]),
                 ms=row["ms"], plain_ms=row["plain_ms"],
                 bound_ms=row["bound_ms"], bound_by=row["bound_by"],
-                library_ms=None, presets=kept_rows)
+                library_ms=None, presets=kept_rows), frame8
 
 
 def warm_mesh(mesh, dev) -> None:
@@ -1948,6 +1981,294 @@ def phase_oracle(dev, sizes=None) -> dict:
     if not all(v != 0.0 for v in moved):
         raise AssertionError("(g): the silhouette term moved nothing")
     return out
+
+
+# ---- 14. the one-bounce driver and the pinned gradient route ----------------
+
+PHASE14 = dict(
+    one_bounce=(W, H, 8, DEPTH),   # (a): the one-bounce driver's frame
+    small=(32, 24, 4, 8),          # (a): kernel against plain
+    pinned=(GW, GH, GSPP, DEPTH),  # (b), (c): phase 8's setting
+    pairs=4096,                    # (c): the non-canonical list
+    tile_rows=None)                # the drivers' default
+# (b): per-leaf relative L2, pinned against queued, on the loss over the
+# pixels no box touches: the two replays gather and scatter in different
+# orders (unordered index_add_ on the card); measured 2.0e-6 at worst
+# (NVIDIA H100 80GB HBM3, 700 W), so 1e-4 leaves room for the atomics'
+# order and catches any difference of estimator
+PINNED_RTOL = 1e-4
+# leaves the pinned replay detaches by design (the camera's shutter time,
+# the reference's pallas_vjp.py:218), whose gradient it leaves at zero
+PINNED_DETACHED = ("camera.time0", "camera.time1")
+
+
+def count_syncs(dev, fn):
+    """(fn(), the synchronising calls it made, any direction) on CUDA, by
+    torch.cuda's sync debug mode; (fn(), None) elsewhere."""
+    import warnings
+    if dev.type != "cuda":
+        return fn(), None
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            out = fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    return out, sum("synchroniz" in str(w.message) for w in caught)
+
+
+def phase_one_bounce(dev, frame8, sizes=None) -> dict:
+    """14 (a). `render_wq(window=1)`: the 32x24 frame through the kernel
+    and through the plain version (equal), then the final scene at
+    800x600, depth 50, 8 spp against phase 11's windowed frame (segments
+    within 0.2%, the envelope), its launches, host synchronisations and
+    kept launch.  `sizes` overrides PHASE14's (a CPU rehearsal)."""
+    from path_tracer_tpu_torch.engine.wq import render_wq
+    from path_tracer_tpu_torch.ops import wave_bounce as WB
+    from path_tracer_tpu_torch.scene.presets import build_final_scene
+    sz = dict(PHASE14, **(sizes or {}))
+    sw, sh, sspp, sdepth = sz["small"]
+    small = {}
+    for d in (dev.type, "cpu"):
+        s_, c_ = build_final_scene(sw / sh, device=d)
+        WB.wave_bounce.launches = 0
+        img, segs, iters, _ = render_wq(s_, c_, sw, sh, sspp,
+                                        max_depth=sdepth, tile_rows=8,
+                                        window=1, return_stats=True,
+                                        device=d)
+        small[d] = (img.cpu().numpy(), segs, iters, WB.wave_bounce.launches)
+    (k_img, k_segs, k_it, k_n), (p_img, p_segs, p_it, _) = (
+        small[dev.type], small["cpu"])
+    err = float(np.abs(k_img - p_img).max())
+    log(f"[14] (a) one-bounce render_wq {sw}x{sh}x{sspp} depth {sdepth}, "
+        f"kernel vs plain: max {err}, segments {k_segs} / {p_segs}, "
+        f"iterations {k_it} / {p_it}, K1 launches {k_n}")
+    if not (np.isfinite(k_img).all() and err == 0 and k_segs == p_segs
+            and k_it == p_it and (dev.type != "cuda" or k_n == k_it)):
+        raise AssertionError("(a): the one-bounce frame differs between "
+                             "the kernel and the plain version")
+
+    w, h, spp, depth = sz["one_bounce"]
+    scene, cam = build_final_scene(w / h, device=dev)
+    kw = dict(max_depth=depth, window=1, return_stats=True, device=dev,
+              tile_rows=sz["tile_rows"])
+    torch.cuda.synchronize()
+    WB.wave_bounce.launches = 0
+    t0 = time.perf_counter()
+    with keep_launch() as kept:
+        img, segs, iters, lane_steps = render_wq(scene, cam, w, h, spp, **kw)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = WB.wave_bounce.launches
+    (img2, _, _, _), syncs = count_syncs(
+        dev, lambda: render_wq(scene, cam, w, h, spp, **kw))
+    frame = img.cpu().numpy()
+    bad, worst = envelope(frame, frame8["frame"])
+    log(f"[14] (a) one-bounce render_wq final scene {w}x{h}x{spp} depth "
+        f"{depth}: {dt:.3f} s, {segs / dt / 1e6:.3f} Mray/s, {segs:.0f} "
+        f"segments (windowed, phase 11: {frame8['segs']:.0f}), {iters} "
+        f"iterations on {lane_steps / max(iters, 1):.0f} lanes, occupancy "
+        f"{segs / lane_steps:.3f}; K1 launches {launches}; host reads "
+        f"{iters} (the loop condition, one a bounce), synchronising calls "
+        f"in a second run {syncs}; against the windowed frame "
+        f"{bad:.4f} of pixels beyond 5e-3, max {worst:.4g}; second run "
+        f"bit-equal {torch.equal(img, img2)}")
+    if launches != iters or launches == 0:
+        raise AssertionError(f"(a): {launches} launches for {iters} "
+                             f"iterations")
+    if abs(segs - frame8["segs"]) > 0.002 * frame8["segs"]:
+        raise AssertionError(f"(a): segments {segs} against the windowed "
+                             f"{frame8['segs']}")
+    if not torch.equal(img, img2):
+        raise AssertionError("(a): two one-bounce renders differ")
+    row = check_kept("one-bounce render_wq", kept, tag="14")
+    return dict(launches=launches, kept=row, wall_s=dt, segs=segs,
+                iters=iters, syncs=syncs)
+
+
+def _named(tree, prefix=()):
+    """(dotted name, leaf) of every non-None leaf of a (scene, camera)
+    params tree."""
+    if isinstance(tree, tuple):
+        names = getattr(tree, "_fields", ("scene", "camera"))
+        for name, kid in zip(names, tree):
+            yield from _named(kid, prefix + (name,))
+    elif tree is not None:
+        yield ".".join(prefix), tree
+
+
+def box_pixels(scene, res, n_pix: int, spp: int) -> torch.Tensor:
+    """Pixels of the canonical grid any of whose samples' recorded paths
+    hit a rect whose scan id several sides share (a box)."""
+    r = scene.rects
+    box = torch.unique(r.scan[r.active & (r.sub > 0)]).long()
+    enc = torch.clamp(res.win - 1.0, min=0.0)
+    rem = enc - torch.floor(enc / 4096.0) * 4096.0
+    cls = torch.floor(rem / 1024.0)
+    scan = (rem - cls * 1024.0).long()
+    hit = ((res.win > 0) & (cls == 1.0)
+           & torch.isin(scan, box.to(scan.device))).any(0).reshape(-1)
+    return hit[:n_pix * spp].reshape(spp, n_pix).any(0)
+
+
+def phase_pinned(dev, train, sizes=None) -> dict:
+    """14 (b), (c). The pinned route at phase 8's setting through
+    `make_render_grad(queued=False)`: its launches and lane count, every
+    launch of a second recording bit-equal to the plain version, a kept
+    launch; then against `make_render_grad(queued=True)` on phase 9's
+    perturbed params and target: the forward's envelope, the loss, each
+    leaf's gradient, and the same on the loss over the pixels no box
+    touches.  Then `render_grad_fn` on a seeded non-canonical list,
+    kernel against plain.  `sizes` overrides PHASE14's."""
+    from path_tracer_tpu_torch.core.vec import fdiv
+    from path_tracer_tpu_torch.diff import params as P
+    from path_tracer_tpu_torch.diff.pallas_vjp import (make_render_grad,
+                                                       render_grad_fn)
+    from path_tracer_tpu_torch.ops import wave_bounce as WB
+    from path_tracer_tpu_torch.scene.presets import build_final_scene
+    sz = dict(PHASE14, **(sizes or {}))
+    w, h, spp, depth = sz["pinned"]
+    n = w * h
+    scene, cam = build_final_scene(w / h, device=dev)
+    pix = torch.arange(n, device=dev).repeat(spp).float()
+    samp = torch.arange(spp, device=dev).repeat_interleave(n).float()
+    kw = dict(max_depth=depth, device=dev, tile_rows=sz["tile_rows"])
+    fp = make_render_grad(w, h, pix, samp, queued=False, **kw)
+    fq = make_render_grad(w, h, pix, samp, queued=True, **kw)
+
+    WB.wave_bounce.launches = 0
+    WB.wave_bounce.events = [] if dev.type == "cuda" else None
+    with keep_launch() as kept, torch.no_grad():
+        fp(scene, cam)
+    launches, events = WB.wave_bounce.launches, WB.wave_bounce.events
+    WB.wave_bounce.events = None
+    res = fp.fn.last
+    lanes = res.dx[0].numel()
+    res_bytes = sum(x.numel() * x.element_size() for x in res)
+    widths = sorted({ln for ln, _, _ in events or ()})
+    log(f"[14] (b) pinned route {w}x{h}x{spp} depth {depth}: K1 launches "
+        f"{launches} at {widths} lanes ({lanes} recorded); residuals "
+        f"{res_bytes} B")
+    if dev.type == "cuda" and (launches != depth or widths != [lanes]):
+        raise AssertionError(f"(b): {launches} launches at {widths}, not "
+                             f"{depth} at {lanes}")
+    kept_row = check_kept("pinned route", kept, tag="14")
+    with check_every_launch("pinned route") as chk, torch.no_grad():
+        fp(scene, cam)
+    log(f"[14] (b) a second recording: {chk.n} launches, each bit-equal to "
+        f"the plain version on its own inputs")
+    if chk.n != depth:
+        raise AssertionError(f"(b): the checked recording launched {chk.n}")
+
+    def fwd():
+        with torch.no_grad():
+            fp(scene, cam)
+
+    forward_s = time_host(fwd, 2)
+    params, static = P.partition((scene, cam))
+    params = perturb_colors(params)
+    target = torch.from_numpy(train["target"]).to(dev)
+    names = [nm for nm, _ in _named(params)]
+
+    def value_and_grad(f, mask=None):
+        xs = [x.detach().requires_grad_(True) for x in P.leaves(params)]
+        img = f(*P.combine(P.with_leaves(params, xs), static))
+        err = img - target
+        if mask is not None:
+            err = err * mask[:, None]
+        loss = fdiv((err * err).sum(), float(n * 3))
+        gs = torch.autograd.grad(loss, xs, allow_unused=True)
+        return img.detach(), float(loss.detach()), [
+            (torch.zeros_like(x) if g is None else g).double().cpu()
+            for x, g in zip(xs, gs)]
+
+    def rel(ga, gb):
+        """Each leaf's relative L2 difference (leaves with a norm past
+        1e-7), but those the pinned replay detaches."""
+        out = {}
+        for nm, a, b in zip(names, ga, gb):
+            if nm not in PINNED_DETACHED and float(b.norm()) > 1e-7:
+                out[nm] = float((a - b).norm()) / float(b.norm())
+        return out
+
+    reset_peak(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    img_p, loss_p, g_p = value_and_grad(fp)
+    torch.cuda.synchronize()
+    vg_s = time.perf_counter() - t0
+    peak = peak_gib(dev)
+    img_q, loss_q, g_q = value_and_grad(fq)
+    bad, worst = envelope(img_p.cpu().numpy(), img_q.cpu().numpy())
+    full = rel(g_p, g_q)
+    boxed = box_pixels(scene, fp.fn.last, n, spp)
+    mask = (~boxed).float()
+    _, loss_pm, g_pm = value_and_grad(fp, mask)
+    _, loss_qm, g_qm = value_and_grad(fq, mask)
+    masked = rel(g_pm, g_qm)
+    top = lambda d: dict(sorted(d.items(), key=lambda x: -x[1])[:6])
+    log(json.dumps({
+        "config": {"width": w, "height": h, "spp": spp, "depth": depth,
+                   "scene": "final", "backend": dev.type,
+                   "route": "pallas_vjp (pinned)", "lanes": lanes},
+        "forward_s": round(forward_s, 4), "value_and_grad_s": round(vg_s, 4),
+        "residual_bytes": res_bytes, "peak_gib": round(peak, 3)}))
+    log(f"[14] (b) against the queued route on phase 9's params and "
+        f"target: forward {bad:.4f} of pixels beyond 5e-3, max {worst:.4g}; "
+        f"loss {loss_p!r} / {loss_q!r}; per-leaf relative L2, worst six: "
+        f"{json.dumps(top(full))}; {int(boxed.sum())} of {n} pixels touch "
+        f"a box; on the loss over the rest ({loss_pm!r} / {loss_qm!r}), "
+        f"worst six: {json.dumps(top(masked))}")
+    if abs(loss_p - loss_q) > 1e-5 * abs(loss_q):
+        raise AssertionError(f"(b): loss {loss_p} against {loss_q}")
+    if any(float(g.abs().sum()) for nm, g in zip(names, g_p)
+           if nm in PINNED_DETACHED):
+        raise AssertionError(f"(b): the pinned route moved {PINNED_DETACHED}")
+    if max(masked.values()) > PINNED_RTOL:
+        raise AssertionError(f"(b): off boxes a leaf's gradient is past "
+                             f"{PINNED_RTOL}: {top(masked)}")
+
+    # (c): a non-canonical list, kernel against plain
+    rs = np.random.RandomState(14)
+    pix_c = torch.from_numpy(rs.randint(0, n, sz["pairs"])).float()
+    samp_c = torch.from_numpy(rs.randint(0, 64, sz["pairs"])).float()
+    try:
+        make_render_grad(w, h, pix_c, samp_c, device=dev)
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("(c): make_render_grad took a non-canonical "
+                             "list")
+    outs = {}
+    for d in (dev.type, "cpu"):
+        s_, c_ = build_final_scene(w / h, device=d)
+        g = render_grad_fn(w, h, max_depth=depth, tile_rows=8, device=d)
+        p_, st_ = P.partition((s_, c_))
+        xs = [x.detach().requires_grad_(True) for x in P.leaves(p_)]
+        rad = g(*P.combine(P.with_leaves(p_, xs), st_), pix_c, samp_c)
+        gs = torch.autograd.grad(rad.mean(), xs, allow_unused=True)
+        outs[d] = (rad.detach().cpu(), [x.cpu() for x in g.last],
+                   [(torch.zeros_like(x) if gg is None else gg).double().cpu()
+                    for x, gg in zip(xs, gs)])
+    (k_rad, k_rec, k_g), (p_rad, p_rec, p_g) = outs[dev.type], outs["cpu"]
+    rec_diff = sum(int((a != b).sum()) for a, b in zip(k_rec, p_rec))
+    # phase 7's contract: the mean radiance's gradient, each leaf's L2
+    # difference over its norm floored at 1e-4
+    leaf_c = {nm: float((a - b).norm()) / max(float(b.norm()), 1e-4)
+              for nm, a, b in zip(names, k_g, p_g)}
+    worst_c = max(leaf_c.values())
+    log(f"[14] (c) render_grad_fn on {sz['pairs']} seeded (pixel, sample) "
+        f"pairs, depth {depth}: make_render_grad refused the list; kernel "
+        f"vs plain: record entries that differ {rec_diff}, radiance equal "
+        f"{torch.equal(k_rad, p_rad)}; gradient of the mean radiance, "
+        f"relative L2, worst three: "
+        f"{json.dumps(dict(sorted(leaf_c.items(), key=lambda x: -x[1])[:3]))}")
+    if rec_diff or not torch.equal(k_rad, p_rad) or worst_c > 2e-3:
+        raise AssertionError("(c): kernel and plain disagree")
+    return dict(launches=launches, kept=kept_row, forward_s=forward_s,
+                value_and_grad_s=vg_s, residual_bytes=res_bytes,
+                peak_gib=peak, full=full, masked=masked)
 
 
 if __name__ == "__main__":

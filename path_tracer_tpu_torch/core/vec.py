@@ -35,6 +35,13 @@ def fsqrt(x: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(x.double()).float()
 
 
+def frsqrt(x: torch.Tensor) -> torch.Tensor:
+    """1/sqrt(x) from a correctly rounded sqrt and an IEEE divide, the same
+    bits on every device: CUDA's rsqrt is not correctly rounded, and a
+    depth-50 replay's gradient amplifies its last bit (see PERF.md)."""
+    return 1.0 / fsqrt(x)
+
+
 def fsin(x: torch.Tensor) -> torch.Tensor:
     return torch.sin(x.double()).float()
 

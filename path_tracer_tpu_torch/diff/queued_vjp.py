@@ -51,7 +51,7 @@ from torch.utils.checkpoint import checkpoint
 from ..core.camera import Camera
 from ..core.device import resolve_device
 from ..core.rng import INITIAL_STATE, MASK32, f32, splitmix32
-from ..core.vec import Vec3, fsin, fsqrt
+from ..core.vec import Vec3, frsqrt, fsin, fsqrt
 from ..engine import wq as WQ
 from ..engine.integrator import camera_rays
 from ..ops import wave_bounce as WB
@@ -528,7 +528,7 @@ def _replay_step(tab, tri_tab, med_tab, cam: Camera, width: int,
 
     a = dx * dx + dy * dy + dz * dz
     a_safe = w(a == 0.0, 1.0, a)
-    inv_len = torch.rsqrt(a_safe)
+    inv_len = frsqrt(a_safe)    # rsqrt, rounded alike on every device
     udx, udy, udz = dx * inv_len, dy * inv_len, dz * inv_len
 
     # sphere, moving centre at tm (sphere.hpp:26-117)
@@ -884,40 +884,58 @@ class RenderGradFb:
 
 
 def render_grad_fb(width: int, height: int, npx: int, spp: int, *,
-                   max_depth: int = 8, tile_rows: Optional[int] = None,
+                   max_depth: int = 8, attenuate: bool = True,
+                   t_min: float = T_MIN, seed: int = SEED,
+                   rows: Optional[int] = None, rows_b: Optional[int] = None,
+                   tile_rows: Optional[int] = None,
+                   tile_rows_b: Optional[int] = None,
+                   window: Optional[int] = None, chunk: Optional[int] = None,
+                   max_steps: Optional[int] = None,
+                   max_steps_b: Optional[int] = None,
+                   avg_path_hint: float = AVG_PATH_HINT,
                    attr_rows: Optional[int] = None,
                    tail_pix: Optional[int] = None,
                    device: Union[str, torch.device] = "cuda") -> RenderGradFb:
     """Build the differentiable render `f` (see `RenderGradFb`): forward
-    runs the recording work queue, backward the replay.  Emission is
-    attenuated by the path throughput, the reference's default.
+    runs the recording work queue, backward the replay.  The keywords are
+    the reference's; each schedule keyword given replaces the value
+    derived below.
 
-    The recording schedule is static and derived as the reference derives
-    its defaults: full-width steps sized from AVG_PATH_HINT mean segments
-    a path drain the sample queue, then the surviving long paths run
-    3*max_depth + 2 windows of steps on a grid of rows/16.  If a scene's
-    mean path exceeds the hint the queue does not drain and fb and
-    gradients are partial; the recorder's `ok` flag (`f.last[1]`) says
-    so."""
+    The recording schedule is static: `max_steps` full-width steps on
+    `rows` rows, sized from `avg_path_hint` mean segments a path, drain
+    the sample queue, then the surviving long paths run `max_steps_b`
+    (3*max_depth + 2 windows) steps on a grid of `rows_b` (rows/16) rows.
+    If a scene's mean path exceeds the hint the queue does not drain and
+    fb and gradients are partial; the recorder's `ok` flag (`f.last[1]`)
+    says so: raise `avg_path_hint` or pass `max_steps`/`max_steps_b`."""
     dev = resolve_device(device)
     if tile_rows is None:
         tile_rows = WB.DEF_TILE_ROWS if dev.type == "cuda" else 8
-    chunk = WQ.pick_chunk(spp, cap=8)
-    window = max(4, min(16, 4 * chunk))
+    if chunk is None:
+        chunk = WQ.pick_chunk(spp, cap=8)
+    if window is None:
+        window = max(4, min(16, 4 * chunk))
     L = npx * spp
-    rows = min(128, max(tile_rows, _round_up(-(-L // (LANE * 5)), tile_rows)))
-    tile_rows_b = min(8, tile_rows)
-    rows_b = _round_up(max(tile_rows_b, rows // 16), tile_rows_b)
+    if rows is None:
+        rows = min(128, max(tile_rows,
+                            _round_up(-(-L // (LANE * 5)), tile_rows)))
+    if tile_rows_b is None:
+        tile_rows_b = min(8, tile_rows)
+    if rows_b is None:
+        rows_b = max(tile_rows_b, rows // 16)
+    rows_b = _round_up(rows_b, tile_rows_b)
     lanes = rows * LANE
     if tail_pix is None:
         # singles cover about the last window's worth of grants; moot
         # when chunks are single-sample already
         tail_pix = 0 if chunk == 1 else min(npx // 2, lanes // 2)
-    max_steps = (int(math.ceil(L * AVG_PATH_HINT / (lanes * 0.85)))
-                 + 2 * window)
-    max_steps_b = 3 * max_depth + 2 * window
-    rcfg = dict(npx=npx, spp=spp, max_depth=max_depth, attenuate=True,
-                t_min=T_MIN, seed=SEED, rows=rows, rows_b=rows_b,
+    if max_steps is None:
+        max_steps = (int(math.ceil(L * avg_path_hint / (lanes * 0.85)))
+                     + 2 * window)
+    if max_steps_b is None:
+        max_steps_b = 3 * max_depth + 2 * window
+    rcfg = dict(npx=npx, spp=spp, max_depth=max_depth, attenuate=attenuate,
+                t_min=t_min, seed=seed, rows=rows, rows_b=rows_b,
                 tile_rows=tile_rows, tile_rows_b=tile_rows_b, window=window,
                 chunk=chunk, n_windows=-(-max_steps // window),
                 n_windows_b=-(-max_steps_b // window), device=dev,

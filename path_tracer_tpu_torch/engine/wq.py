@@ -1,8 +1,10 @@
 """Windowed work-queue renderer: the port's production forward path.
 
-Mirrors the reference package's `engine/wq.py` windowed driver
-(`wq_window_fb`, `render_wq`, `render_wq_range`).  Lanes that finish are
-refilled from a global chunk queue, so no lane idles behind a long path:
+Mirrors the reference package's `engine/wq.py`: the windowed driver
+(`wq_window_fb`, `render_wq`, `render_wq_range`) and, for
+`render_wq(window=1)`, the one-bounce driver (`render_wq_one_bounce`).
+Lanes that finish are refilled from a global chunk queue, so no lane idles
+behind a long path:
 
 1. refill: dead lanes are granted the next chunk (`chunk` consecutive
    samples of one pixel, pixel-major), seeded with `core.rng`'s
@@ -36,7 +38,7 @@ import torch
 
 from ..core.camera import Camera
 from ..core.device import resolve_device
-from ..core.rng import INITIAL_STATE, MASK32, splitmix32
+from ..core.rng import INITIAL_STATE, MASK32, f32, splitmix32
 from ..core.vec import fdiv
 from ..scene import types as T
 from ..ops import wave_bounce as WB
@@ -49,6 +51,7 @@ DEF_WINDOW = 32                    # bounces per deposit window on the card
 CPU_WINDOW = 3
 MAX_CHUNK = 10                     # samples per grant; chunk | spp
 S_SLOTS = 4                        # texel-service slots per 128-lane row
+INV255 = f32(1.0 / 255.0)
 
 
 def _round_up(n: int, m: int) -> int:
@@ -110,6 +113,30 @@ def texel_service(fx: WB.FixState, k: int, atlas_flat: torch.Tensor,
     srow = served_row[:, None] & need
     texel = torch.where(srow, ctex[torch.clamp(hrank, 0, cap - 1)], texel)
     return texel, (srv | srow).to(torch.float32)
+
+
+def resolve_fixups(st: WB.WaveState, fix: WB.FixState,
+                   atlas_flat: torch.Tensor, n_atlas: int):
+    """Resolve one bounce's image-texture fixups in the driver, as the
+    reference's one-bounce driver and pixel-pinned recorder do after a K1
+    call made with fix=None: gather every lane's atlas texel, multiply the
+    throughput of FIX_ALBEDO lanes by it, and weight the emission of
+    FIX_EMIT lanes by it (texture.hpp:144-150).  Returns (state with the
+    throughput updated, (er, eg, eb) the emission, 0 on other lanes, and
+    the int32 texels)."""
+    idx = torch.clamp(fix.idx.long(), 0, n_atlas - 1)
+    texel = atlas_flat[idx]
+    tx = [((texel >> sh) & 0xFF).to(torch.float32) * INV255
+          for sh in (0, 8, 16)]
+    is_alb = fix.kind == WB.FIX_ALBEDO
+    is_emit = fix.kind == WB.FIX_EMIT
+    w = torch.where
+    st = st._replace(tpx=w(is_alb, st.tpx * tx[0], st.tpx),
+                     tpy=w(is_alb, st.tpy * tx[1], st.tpy),
+                     tpz=w(is_alb, st.tpz * tx[2], st.tpz))
+    emit = tuple(w(is_emit, fw * t, 0.0)
+                 for fw, t in zip((fix.fwx, fix.fwy, fix.fwz), tx))
+    return st, emit, texel
 
 
 class WqwExtra(NamedTuple):
@@ -252,6 +279,8 @@ def wq_window_fb(scene: T.Scene, cam: Camera, width: int, height: int, *,
     cpp = spp_loc // C
     if cpp * C != spp_loc:
         raise ValueError(f"chunk {C} must divide spp_loc {spp_loc}")
+    if window < 1:
+        raise ValueError(f"window must be >= 1, got {window}")
     if n_pix_loc * spp_loc >= 2 ** 31:
         raise ValueError("sample ids must fit in int32")
     dev = device
@@ -382,13 +411,98 @@ def wq_window_fb(scene: T.Scene, cam: Camera, width: int, height: int, *,
     return fb3, segs, iters, lane_steps
 
 
+def render_wq_one_bounce(scene: T.Scene, cam: Camera, width: int,
+                         height: int, spp: int, *, max_depth: int,
+                         attenuate: bool, t_min: float, tile_rows: int,
+                         seed: int, device: torch.device):
+    """The one-bounce work-queue driver, the reference's `_render_wq_jit`:
+    the reference's slow cross-check of the windowed driver, not a
+    production path.  Lanes are pinned to one sample each; every bounce
+    grants dead lanes the next sample ids (an exclusive prefix over the
+    dead lanes), launches K1 once with no pending fixups, resolves that
+    call's image-texture fixups here (`resolve_fixups`), and deposits the
+    samples that finished into the framebuffer, every entry's
+    contributions in lane order (`_add_in_order`).  Its loop condition
+    (samples left to grant, or a lane alive) costs one host read a
+    bounce.  Returns (img (H, W, 3), traced_segments, bounce_iters,
+    lane_steps = bounce_iters * lanes)."""
+    n_pix = width * height
+    total = n_pix * spp
+    if total >= 2 ** 31:
+        raise ValueError("sample ids must fit in int32")
+    dev = device
+    lanes = _round_up(min(n_pix, total), tile_rows * LANE)
+    rows = lanes // LANE
+    sh = (rows, LANE)
+
+    tables = WB.pack_scene(scene, dev)._replace(
+        cam=WB.pack_camera(cam, width, height, dev), seed=int(seed) & MASK32)
+    atlas_flat, n_atlas = _pack_atlas_flat(scene.textures.atlas.to(dev))
+    w = torch.where
+
+    def refill(st: WB.WaveState, counter: torch.Tensor):
+        """Grant dead lanes the next sample ids and launch their camera
+        rays, seeded splitmix(pix ^ splitmix(k ^ seed)), never 0, as the
+        kernel's regeneration seeds them.  send = s: the kernel's in-chunk
+        regeneration never fires; the queue is the only sample source."""
+        dead = (st.alive <= 0.0).reshape(-1)
+        dead_i = dead.long()
+        rank = torch.cumsum(dead_i, 0) - dead_i          # exclusive prefix
+        navail = total - counter
+        grant = (dead & (rank < navail)).reshape(sh)
+        sid = counter + rank
+        pix_new = torch.div(sid, spp, rounding_mode="floor")
+        k_new = sid - pix_new * spp
+        rng0 = splitmix32(pix_new ^ splitmix32(k_new ^ tables.seed))
+        rng0 = w(rng0 == 0, torch.full_like(rng0, INITIAL_STATE), rng0)
+        rng1, o, d, tmv = camera_rays(cam, width, height, pix_new, rng0)
+        sel = lambda new, old: w(grant, new.reshape(sh), old)
+        k_f = k_new.to(torch.float32)
+        st = st._replace(
+            ox=sel(o.x, st.ox), oy=sel(o.y, st.oy), oz=sel(o.z, st.oz),
+            dx=sel(d.x, st.dx), dy=sel(d.y, st.dy), dz=sel(d.z, st.dz),
+            tm=sel(tmv, st.tm), rng=sel(rng1, st.rng),
+            tpx=w(grant, 1.0, st.tpx), tpy=w(grant, 1.0, st.tpy),
+            tpz=w(grant, 1.0, st.tpz), radx=w(grant, 0.0, st.radx),
+            rady=w(grant, 0.0, st.rady), radz=w(grant, 0.0, st.radz),
+            alive=w(grant, 1.0, st.alive), s=sel(k_f, st.s),
+            bnc=w(grant, 0.0, st.bnc),
+            pix=sel(pix_new.to(torch.float32), st.pix), send=sel(k_f, st.send))
+        return st, counter + torch.minimum(dead_i.sum(), navail)
+
+    st = _zeros_state(rows, dev)
+    fb = torch.zeros(3 * n_pix + 1, dtype=torch.float32, device=dev)
+    counter = torch.zeros((), dtype=torch.long, device=dev)
+    z = torch.zeros(sh, dtype=torch.float32, device=dev)
+    iters, more = 0, True
+    while more:
+        st, counter = refill(st, counter)
+        out = WB.wave_bounce(tables, st, t_min=t_min, max_depth=max_depth,
+                             attenuate=attenuate, tile_rows=tile_rows)
+        st, emit, _ = resolve_fixups(out.state, out.fix, atlas_flat, n_atlas)
+        # acc was zero going in: it holds the radiance of the samples that
+        # finished this bounce.  A lane holds one sample id at a time and
+        # ids are granted once, so a pixel takes at most spp of them.
+        vals = torch.cat([(a + e).reshape(-1) for a, e in zip(
+            (st.accx, st.accy, st.accz), emit)])
+        fb = _add_in_order(fb, torch.cat(_plane_idx(st.pix, n_pix, 0.0)),
+                           vals, 3 * n_pix, spp)
+        st = st._replace(accx=z, accy=z, accz=z)
+        iters += 1
+        granted, alive = torch.stack(                 # one host read
+            [counter, (st.alive > 0.0).any().long()]).tolist()
+        more = granted < total or bool(alive)
+    img = fdiv(fb[:3 * n_pix].reshape(3, n_pix).transpose(0, 1),
+               float(spp)).reshape(height, width, 3)
+    segs = float(st.wrk.sum(dtype=torch.float64))
+    return img, segs, iters, float(iters * lanes)
+
+
 def _defaults(dev: torch.device, tile_rows, window):
     cuda = dev.type == "cuda"
     tile_rows = tile_rows or (DEF_TILE_ROWS if cuda else CPU_TILE_ROWS)
-    window = window or (DEF_WINDOW if cuda else CPU_WINDOW)
-    if window <= 1:
-        raise ValueError("window must be > 1 (the one-bounce driver is not "
-                         "ported)")
+    if window is None:
+        window = DEF_WINDOW if cuda else CPU_WINDOW
     return tile_rows, window
 
 
@@ -400,8 +514,10 @@ def render_wq_range(scene: T.Scene, cam: Camera, width: int, height: int,
                     device: Union[str, torch.device] = "cuda"
                     ) -> torch.Tensor:
     """Unnormalised framebuffer sums (n_pix, 3) over samples
-    [samp_base, samp_base + sc) of every pixel.  Streams are keyed on the
-    global (pixel, sample) pair, so range sums compose deterministically."""
+    [samp_base, samp_base + sc) of every pixel, through the windowed
+    driver at any `window` (1 included, as in the reference).  Streams are
+    keyed on the global (pixel, sample) pair, so range sums compose
+    deterministically."""
     dev = resolve_device(device)
     tile_rows, window = _defaults(dev, tile_rows, window)
     fb, _, _, _ = wq_window_fb(
@@ -419,10 +535,18 @@ def render_wq(scene: T.Scene, cam: Camera, width: int, height: int,
               window: Optional[int] = None, return_stats: bool = False,
               device: Union[str, torch.device] = "cuda"):
     """Render with the work-queue megakernel.  Output (H, W, 3), fb row 0 =
-    image bottom (flipped at save, main.cpp:41).  With return_stats:
-    (img, traced_segments, bounce_iters, lane_steps)."""
+    image bottom (flipped at save, main.cpp:41).  `window` > 1 (the
+    default) takes the windowed driver, window <= 1 the one-bounce driver
+    (`render_wq_one_bounce`).  With return_stats: (img, traced_segments,
+    bounce_iters, lane_steps)."""
     dev = resolve_device(device)
     tile_rows, window = _defaults(dev, tile_rows, window)
+    if window <= 1:
+        out = render_wq_one_bounce(
+            scene, cam, width, height, spp, max_depth=max_depth,
+            attenuate=attenuate_emission, t_min=t_min, tile_rows=tile_rows,
+            seed=seed, device=dev)
+        return out if return_stats else out[0]
     fb, segs, iters, lane_steps = wq_window_fb(
         scene, cam, width, height, n_pix_loc=width * height, spp_loc=spp,
         chunk=pick_chunk(spp), window=window, max_depth=max_depth,

@@ -17,9 +17,9 @@ Without a process group the mesh is 1x1 and every reduction is a no-op,
 so the same code runs in one process.  Both of the reference's renderers
 are here: the work queue (`renderer="wq"`, the default) and the oracle
 engine's (`renderer="jnp"`); and both gradient backends: record and replay
-(`backend="queued"`, the default, the reference's "pallas") and autograd
-through `trace(differentiable=True)` (`backend="jnp"`), with the
-silhouette terms of `diff.edge` (`geometry_edge`) added before the
+(`backend="queued"`, the default, or "pallas", the reference's name) and
+autograd through `trace(differentiable=True)` (`backend="jnp"`), with
+the silhouette terms of `diff.edge` (`geometry_edge`) added before the
 all-reduce.
 """
 from __future__ import annotations
@@ -257,9 +257,9 @@ def make_train_step(static_scene, static_cam_tree, width: int, height: int,
     loss = sum((img - target)^2) / (W*H*3), the reference's mean over the
     global pixel population.
 
-    backend="queued" (default): the gradients come from the
-    record-and-replay route (`diff.queued_vjp.render_grad_fb`), the
-    reference's "pallas" backend.  backend="jnp": autograd through
+    backend="queued" (default), or "pallas", the reference's name for it:
+    the gradients come from the record-and-replay route
+    (`diff.queued_vjp.render_grad_fb`).  backend="jnp": autograd through
     `trace(differentiable=True)` with attenuated emission, the oracle that
     tests/test_grad.py holds the other route against.  Both routes trace
     with the reference's ray epsilon, `queued_vjp.T_MIN`.
@@ -278,8 +278,9 @@ def make_train_step(static_scene, static_cam_tree, width: int, height: int,
     are summed over tiles and averaged over spp before `grad_filter` (which
     maps the gradient tree, None at static leaves) and the update p -
     lr*g, so every rank ends with the same params."""
-    if backend not in ("queued", "jnp"):
-        raise ValueError(f"unknown backend {backend!r}; have 'queued', 'jnp'")
+    if backend not in ("queued", "pallas", "jnp"):
+        raise ValueError(f"unknown backend {backend!r}; have 'queued', "
+                         f"'pallas' (the same route), 'jnp'")
     if mesh is not None:
         device = mesh.device
     device = resolve_device(device)

@@ -10,7 +10,9 @@ FETCH_MODE "high" (exact f32 fetch) inside the fixture only.
 Tolerances: the loss within 1e-4 relative (the recordings' knife-edge
 lanes and the sum order), every updated param within 1e-6 of the
 reference's, and the update p' - p within 2e-2 relative L2 of the
-reference's update.  On the port alone, the loss falls over 3 steps.
+reference's update.  On the port alone, the loss falls over 3 steps, and
+backend="pallas" (the reference's name for the route) takes the same step
+as the default backend="queued".
 """
 import jax
 import jax.numpy as jnp
@@ -91,7 +93,8 @@ def steps():
         p, l2 = step(p, target, pix)
         losses.append(float(l2))
     return dict(params=params, new=new, loss=float(loss),
-                jnew=_port_tree(jnew), jloss=float(jloss), losses=losses)
+                jnew=_port_tree(jnew), jloss=float(jloss), losses=losses,
+                static=(s_scene, s_cam), target=target)
 
 
 def test_loss_matches_reference(steps):
@@ -119,3 +122,20 @@ def test_loss_falls_over_three_steps(steps):
     assert all(np.isfinite(losses)), losses
     assert losses[0] > losses[1] > losses[2], losses
 
+
+
+def test_pallas_backend_is_the_queued_route(steps):
+    step = TM.make_train_step(*steps["static"], W, H, LOCAL_SPP, DEPTH,
+                              lr=LR, grad_filter=_only_material_colors(
+                                  torch.zeros_like), device="cpu",
+                              backend="pallas")
+    new, loss = step(steps["params"], steps["target"], torch.arange(W * H))
+    assert float(loss) == steps["loss"]
+    for a, b in zip(TP.leaves(new), TP.leaves(steps["new"])):
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
+
+
+def test_unknown_backend_names_every_backend(steps):
+    with pytest.raises(ValueError, match="'queued', 'pallas'.*'jnp'"):
+        TM.make_train_step(*steps["static"], W, H, LOCAL_SPP, DEPTH,
+                           device="cpu", backend="mxu")
