@@ -2,14 +2,17 @@
 
 One reference render: the reference package's `render_wq` of cornell_box
 at 16x16, 4 spp, depth 6, with the tile rows and window of the port's CPU
-defaults (`engine/wq.py`: 8 and 3), its kernel in interpret mode.  The
+defaults (`engine/wq.py`: 8 and 3), its kernel in interpret mode, read
+from the golden tests/golden/jax_ref/torch_cli.npz, which
+tools/make_jax_goldens.py records from the frozen package.  The
 port renders the same preset through `cli.main(["render", ...,
 "--device", "cpu", "--renderer", "wq"])` (on the CPU `auto` is the
 wavefront engine, as in the reference), the plain PyTorch version of the
 bounce kernel.  The
 envelope is tests/test_torch_wq.py's: at most 3% of pixels beyond 5e-3
 (knife-edge paths, docs/PERF_NOTES.md:67-75), traced segments within 0.2%
-and the same number of bounce iterations.
+and the same number of bounce iterations.  `bench` renders its preset
+at 16x16 here: the test checks the line it prints.
 """
 import contextlib
 import io
@@ -19,12 +22,11 @@ import numpy as np
 import pytest
 from PIL import Image
 
-from path_tracer_tpu.engine import wq as JWQ
-from path_tracer_tpu.scene.presets import CORNELL_BOX
 from path_tracer_tpu_torch import cli
 from path_tracer_tpu_torch.engine import wq as TWQ
 from path_tracer_tpu_torch.utils import profiling
 from path_tracer_tpu_torch.utils.image import dump_ppm, tonemap
+from tools import make_jax_goldens as golden
 
 W, H, SPP, DEPTH = 16, 16, 4, 6
 BENCH_KEYS = {"metric", "value", "unit", "vs_baseline"}   # the reference's
@@ -32,11 +34,10 @@ BENCH_KEYS = {"metric", "value", "unit", "vs_baseline"}   # the reference's
 
 @pytest.fixture(scope="module")
 def reference():
-    js, jc = CORNELL_BOX.build()
-    img, segs, iters, _ = JWQ.render_wq(
-        js, jc, W, H, SPP, max_depth=DEPTH, tile_rows=TWQ.CPU_TILE_ROWS,
-        window=TWQ.CPU_WINDOW, return_stats=True)
-    return np.asarray(img), float(segs), int(iters)
+    g = golden.load("torch_cli", dict(
+        scene="cornell_box", width=W, height=H, spp=SPP, max_depth=DEPTH,
+        tile_rows=TWQ.CPU_TILE_ROWS, window=TWQ.CPU_WINDOW))
+    return g["img"], float(g["segs"]), int(g["iters"])
 
 
 @pytest.fixture(scope="module")
@@ -108,7 +109,9 @@ def test_cli_render_metrics_and_ppm(cli_render):
     assert "\n".join(ppm) + "\n" == dump_ppm(cli_render["img"])
 
 
-def test_cli_bench_prints_one_json_line(capsys):
+def test_cli_bench_prints_one_json_line(capsys, monkeypatch):
+    monkeypatch.setitem(cli.PRESETS, "three_spheres", cli.PRESETS[
+        "three_spheres"]._replace(width=W, height=H))
     assert cli.main(["bench", "--scene", "three_spheres", "--spp", "1",
                      "--device", "cpu"]) == 0
     lines = capsys.readouterr().out.strip().splitlines()

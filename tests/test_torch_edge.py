@@ -12,28 +12,26 @@
   1e-4 relative of the reference's (the same streams on both sides; the
   projection's 3x3 solve is LAPACK's here and XLA's there).
 
-Every reference call is made once, in the module's fixture (one
-`jax.grad` for both parameters).
+The reference's values (one `jax.grad` for both parameters, and the
+silhouette terms) are read from the golden
+tests/golden/jax_ref/torch_edge.npz, which tools/make_jax_goldens.py
+records from the frozen package at these inputs; the scenes are the
+reference's, built there (`grad_scene`, `edge_scene`).
 """
 import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from path_tracer_tpu.core import rng as JR
-from path_tracer_tpu.core.camera import Camera as JCamera
-from path_tracer_tpu.diff.edge import sphere_silhouette_grad as jedge
-from path_tracer_tpu.engine import integrator as JI
-from path_tracer_tpu.scene.builder import SceneBuilder as JSceneBuilder
 from path_tracer_tpu_torch.convert import camera_from_numpy, scene_from_numpy
 from path_tracer_tpu_torch.core import rng as TR
 from path_tracer_tpu_torch.diff.edge import sphere_silhouette_grad
 from path_tracer_tpu_torch.engine import integrator as TI
+from tools import make_jax_goldens as golden
 
 DW = DH = 12                     # test_grad's setting
 DSPP, DDEPTH = 4, 4
-ALBEDO_ROW, LIGHT_ROW = 1, 2     # the ball's and the light's texture rows
+ALBEDO_ROW, LIGHT_ROW = golden.ALBEDO_ROW, golden.LIGHT_ROW
 EW = EH = 40                     # test_edge_grad's setting
 EDGE_KW = dict(n_edge=192, spp_edge=48, max_depth=4, seed=5)
 
@@ -42,51 +40,17 @@ def _np_tree(t):
     return jax.tree_util.tree_map(np.asarray, t)
 
 
-def _grad_scene():
-    """tests/test_grad.py's scene: ground, a lambertian ball, a light."""
-    sb = JSceneBuilder()
-    sb.add_sphere((0, -100.5, -1), 100.0, sb.lambertian((0.6, 0.6, 0.6)))
-    sb.add_sphere((0, 0, -1), 0.5, sb.lambertian((0.5, 0.2, 0.3)))
-    sb.add_sphere((0, 1.2, -1), 0.3, sb.light((4.0, 4.0, 4.0)))
-    return sb.build(), JCamera.create((0, 0.2, 0.6), (0, 0, -1), (0, 1, 0),
-                                      60.0, 1.0, 0.0, 1.6)
-
-
-def _edge_scene():
-    """tests/test_edge_grad.py's scene and pinhole camera."""
-    sb = JSceneBuilder()
-    sb.add_sphere((0.0, 0.0, -1.0), 0.5, sb.lambertian((0.2, 0.3, 0.6)))
-    return sb.build(), JCamera.create((0, 0, 1), (0, 0, -1), (0, 1, 0),
-                                      60.0, 1.0, 0.0, 2.0)
-
-
-def _with_c1(scene, xp, albedo, light):
-    """The scene with the ball's albedo red and the light's three
-    channels set (xp: the array module's functional row update)."""
-    c1 = scene.textures.c1
-    c1 = type(c1)(xp(xp(c1.x, ALBEDO_ROW, albedo), LIGHT_ROW, light),
-                  xp(c1.y, LIGHT_ROW, light), xp(c1.z, LIGHT_ROW, light))
-    return scene._replace(textures=scene.textures._replace(c1=c1))
-
-
-def _jax_set(a, i, v):
-    return a.at[i].set(v)
-
-
-def _torch_set(a, i, v):
+def _set(a, i, v):
     return torch.cat([a[:i], v.reshape(1), a[i + 1:]])
 
 
-def _jax_loss(scene, cam, albedo, light):
-    n = DW * DH
-    pix = jnp.tile(jnp.arange(n, dtype=jnp.uint32), DSPP)
-    samp = jnp.repeat(jnp.arange(DSPP, dtype=jnp.uint32), n)
-    state, o, d, t = JI.camera_rays(cam, DW, DH, pix,
-                                    JR.seed_perf(pix, samp, 0))
-    _, rad = JI.trace(_with_c1(scene, _jax_set, albedo, light), o, d, t,
-                      state, DDEPTH, attenuate_emission=True,
-                      differentiable=True)
-    return (jnp.mean(rad.x) + jnp.mean(rad.y) + jnp.mean(rad.z)) / 3.0
+def _with_c1(scene, albedo, light):
+    """The scene with the ball's albedo red and the light's three
+    channels set."""
+    c1 = scene.textures.c1
+    c1 = type(c1)(_set(_set(c1.x, ALBEDO_ROW, albedo), LIGHT_ROW, light),
+                  _set(c1.y, LIGHT_ROW, light), _set(c1.z, LIGHT_ROW, light))
+    return scene._replace(textures=scene.textures._replace(c1=c1))
 
 
 def _port_loss(scene, cam, albedo, light):
@@ -95,7 +59,7 @@ def _port_loss(scene, cam, albedo, light):
     samp = torch.arange(DSPP).repeat_interleave(n)
     state, o, d, t = TI.camera_rays(cam, DW, DH, pix,
                                     TR.seed_perf(pix, samp, 0))
-    _, rad = TI.trace(_with_c1(scene, _torch_set, albedo, light), o, d, t,
+    _, rad = TI.trace(_with_c1(scene, albedo, light), o, d, t,
                       state, DDEPTH, attenuate_emission=True,
                       differentiable=True)
     return (rad.x.mean() + rad.y.mean() + rad.z.mean()) / 3.0
@@ -103,16 +67,14 @@ def _port_loss(scene, cam, albedo, light):
 
 @pytest.fixture(scope="module")
 def refs():
-    gs, gc = _grad_scene()
-    g_alb, g_light = jax.grad(lambda a, v: _jax_loss(gs, gc, a, v),
-                              argnums=(0, 1))(jnp.float32(0.5),
-                                              jnp.float32(4.0))
-    es, ec = _edge_scene()
-    ct = jnp.full((EH, EW, 3), 1.0 / (EW * EH * 3), jnp.float32)
-    eg = jedge(es, ec, EW, EH, 0, ct, **EDGE_KW)
-    return dict(grad=(gs, gc, float(g_alb), float(g_light)),
-                edge=(es, ec, [float(c) for c in eg.center],
-                      float(eg.radius)))
+    g = golden.load("torch_edge", dict(
+        grad=dict(width=DW, height=DH, spp=DSPP, max_depth=DDEPTH,
+                  albedo=0.5, light=4.0),
+        edge=dict(width=EW, height=EH, **EDGE_KW)))
+    return dict(grad=golden.grad_scene() + (float(g["g_albedo"]),
+                                            float(g["g_light"])),
+                edge=golden.edge_scene() + ([float(c) for c in g["center"]],
+                                            float(g["radius"])))
 
 
 @pytest.mark.parametrize("what", ["albedo", "light"])

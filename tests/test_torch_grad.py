@@ -4,7 +4,7 @@ reference's, on the CPU.
 The reference's gradient is `jax.grad` of mean(render_grad_fb(...)) on the
 final scene at 16x12, 2 spp, depth 4, with its FETCH_MODE set to "high"
 (an exact f32 fetch; its default "split3" rounds the table's cotangents
-to bf16, ROADMAP Queue 3 item 1) inside the fixture only.  The port's is
+to bf16, ROADMAP Queue 3 item 1) while it is taken.  The port's is
 autograd through its own recording and replay, compared leaf by leaf
 through `convert`.  Tolerance: per leaf, |g_port - g_ref| <= rtol |g_ref|
 + 1e-7 (relative L2; leaves with a negligible norm fall under the 1e-7),
@@ -13,8 +13,11 @@ Measured: <= 2.1e-3 on every leaf but c1, c2 (<= 1.4e-2 there): the two
 recordings differ on 3 knife-edge win entries (test_torch_record.py),
 and the albedos along those paths take the difference.  The same holds
 with the reference's other keywords, seed=3 and attenuate=False (one more
-`jax.grad` in the same fixture), except on the camera's leaves, held to
-2e-2 there (RTOL_CAMERA_SEED3 says why).
+`jax.grad`), except on the camera's leaves, held to 2e-2 there
+(RTOL_CAMERA_SEED3 says why).  The reference's gradients are read from
+the golden tests/golden/jax_ref/torch_grad.npz, which
+tools/make_jax_goldens.py records from the frozen package at these inputs
+(tests/test_jax_goldens.py recomputes it); the port's are computed here.
 
 On the port alone: the `attr_rows` hint is value-neutral, the attribute
 tables equal the reference's bit for bit, the schedule keywords replace
@@ -23,7 +26,6 @@ agree with the gradient on tests/test_pallas_vjp.py's cases and
 tolerances (a Lambertian albedo, the light's emission, a metal fuzz).
 """
 import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -36,6 +38,7 @@ from path_tracer_tpu_torch.core.camera import Camera
 from path_tracer_tpu_torch.diff import params as TP
 from path_tracer_tpu_torch.diff import queued_vjp as TQ
 from path_tracer_tpu_torch.scene.builder import SceneBuilder
+from tools import make_jax_goldens as golden
 
 W, H, SPP, DEPTH = 16, 12, 2, 4
 GROUPS = ("spheres", "rects", "triangles", "media", "materials",
@@ -69,22 +72,14 @@ def grads():
     js, jc = build_final_scene(W / H)
     scene = scene_from_numpy(jax.tree_util.tree_map(np.asarray, js), "cpu")
     cam = camera_from_numpy(jax.tree_util.tree_map(np.asarray, jc))
-    sp, ss = JP.partition(js)
-    cp, cs = JP.partition(jc)
-    zero = jnp.float32(0.0)
+    g = golden.load("torch_grad", dict(width=W, height=H, spp=SPP,
+                                       max_depth=DEPTH, fetch_mode="high",
+                                       keywords=KEYWORDS))
+    like = (JP.partition(js)[0], JP.partition(jc)[0])
     ref = {}
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(JQ, "FETCH_MODE", "high")
-        for name, kw in KEYWORDS.items():
-            f = JQ.render_grad_fb(W, H, W * H, SPP, max_depth=DEPTH, **kw)
-
-            def loss(sp_, cp_):
-                return jnp.mean(f(JP.combine(sp_, ss), JP.combine(cp_, cs),
-                                  zero, zero))
-            jg = jax.tree_util.tree_map(np.asarray, jax.jit(jax.grad(
-                loss, argnums=(0, 1)))(sp, cp))
-            ref[name] = (scene_from_numpy(jg[0], "cpu"),
-                         camera_from_numpy(jg[1]))
+    for name in KEYWORDS:
+        jg = golden.unflatten(g, name, like)
+        ref[name] = (scene_from_numpy(jg[0], "cpu"), camera_from_numpy(jg[1]))
     return dict(js=js, scene=scene, cam=cam, ref=ref,
                 port={name: _port_grads(scene, cam, **kw)
                       for name, kw in KEYWORDS.items()})

@@ -106,6 +106,10 @@ def test_cli_renderer_writes_the_engines_frame(renderer, three, tmp_path,
 def test_auto_rule_and_bench(capsys, monkeypatch):
     assert cli.resolve_auto_renderer(torch.device("cpu")) == "wavefront"
     assert cli.resolve_auto_renderer(torch.device("cuda")) == "wq"
+    # bench renders its preset at this file's size: the test checks the
+    # renderer it ran and the line it printed
+    monkeypatch.setitem(cli.PRESETS, NAME, cli.PRESETS[NAME]._replace(
+        width=W, height=H))
     ran = []
     real = cli.render_wavefront
     monkeypatch.setattr(cli, "render_wavefront",

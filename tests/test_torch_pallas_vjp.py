@@ -5,7 +5,10 @@ Against the reference (one module-scoped fixture): the final scene at
 16x8, 2 spp, depth 4 on the canonical grid (tests/test_pallas_vjp.py's
 final-scene config), recorded by the reference's `record_forward` (its
 kernel in interpret mode) and by the port's (the kernel's plain
-version).  Tolerances, and why:
+version).  The reference's record, replay and `jax.vjp` are read from the
+golden tests/golden/jax_ref/torch_pallas_vjp.npz, which
+tools/make_jax_goldens.py records from the frozen package at these
+inputs.  Tolerances, and why:
 * `win` and `texel`: equal on >= 99.9% of entries, the knife-edge flips
   test_torch_record.py bounds (XLA's CPU compiler contracts a*b+c into
   FMA, the port rounds every op);
@@ -37,7 +40,6 @@ pinned and queued forwards inside tests/test_wq.py's envelope; and
 queued route take 2 spp (its CPU schedule dominates the file's time).
 """
 import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -55,6 +57,7 @@ from path_tracer_tpu_torch.diff import queued_vjp as TQ
 from path_tracer_tpu_torch.engine.integrator import camera_rays, trace
 from path_tracer_tpu_torch.scene import presets as TPR
 from path_tracer_tpu_torch.scene.builder import SceneBuilder
+from tools import make_jax_goldens as golden
 
 FW, FH, FSPP, FDEPTH = 16, 8, 2, 4          # the final-scene config
 CFG = dict(max_depth=FDEPTH, attenuate=True, t_min=1e-3, seed=0)
@@ -78,21 +81,10 @@ def _named_leaves(tree, prefix=()):
 @pytest.fixture(scope="module")
 def ref():
     js, jc = build_final_scene(1.5)
-    pix = jnp.tile(jnp.arange(FN, dtype=jnp.uint32), FSPP)
-    samp = jnp.repeat(jnp.arange(FSPP, dtype=jnp.uint32), FN)
-    rad, res = jax.jit(lambda s, c: JV.record_forward(
-        s, c, FW, FH, pix, samp, tile_rows=8, interpret=True, **CFG))(js, jc)
-    params, static = JP.partition((js, jc))
-
-    def replay(p):
-        s, c = JP.combine(p, static)
-        return JV.replay_radiance(s, c, res, pix, samp, width=FW, height=FH,
-                                  **CFG)
-
-    val, vjp = jax.vjp(replay, params)
-    ct = np.random.RandomState(8).standard_normal(val.shape).astype(
-        np.float32)
-    (grads,) = vjp(jnp.asarray(ct))
+    g = golden.load("torch_pallas_vjp", dict(
+        width=FW, height=FH, spp=FSPP, aspect=1.5, tile_rows=8,
+        cotangent_seed=8, **CFG))
+    res = golden.unflatten(g, "res", JV.Residuals(*[0] * 6))
     sb = JSceneBuilder()         # three spheres in a class padded to 8
     for i in range(3):
         sb.add_sphere((i, 0, -1), 0.5, sb.lambertian((0.5, 0.5, 0.5)))
@@ -104,11 +96,12 @@ def ref():
         scene, cam, FW, FH, *_grid(FN, FSPP), tile_rows=8, device="cpu",
         **CFG)
     return dict(
-        scene=scene, cam=cam, rad=np.asarray(rad),
+        scene=scene, cam=cam, rad=g["rad"],
         res=TV.Residuals(*(torch.from_numpy(np.asarray(x).astype(
             np.int32 if name == "texel" else np.float32))
             for name, x in zip(JV.Residuals._fields, res))),
-        val=np.asarray(val), ct=ct, grads=np_(grads),
+        val=g["val"], ct=g["ct"],
+        grads=golden.unflatten(g, "grads", JP.partition((js, jc))[0]),
         maps=[np.asarray(m) for m in JV._scan_maps(js)],
         small=scene_from_numpy(np_(jsmall), "cpu"),
         small_maps=[np.asarray(m) for m in JV._scan_maps(jsmall)],

@@ -2,9 +2,11 @@
 against the reference's, on the CPU.
 
 The final scene at 16x12, 2 spp, depth 4 (carried across with `convert`)
-is recorded by the reference (its kernel in interpret mode) and by the
-port (the kernel's plain version), with the schedule both
-`render_grad_fb`s derive.  Tolerances, and why:
+is recorded by the reference (its kernel in interpret mode; read from the
+golden tests/golden/jax_ref/torch_record.npz, which
+tools/make_jax_goldens.py records from the frozen package at these
+inputs) and by the port (the kernel's plain version), with the schedule
+both `render_grad_fb`s derive.  Tolerances, and why:
 * schedule (here and at tools/bench_grad.py's 400x300, 4 spp, depth 50),
   `ok`, and the integer record planes pix, s, fresh, texel, fixk, perm
   and pvalid: equal entry for entry;
@@ -29,7 +31,6 @@ reconstructs the recorded framebuffer, and variable chunking (`tail_pix`)
 changes no radiance (and, here, no segment count).
 """
 import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -38,6 +39,7 @@ from path_tracer_tpu.diff import queued_vjp as JQ
 from path_tracer_tpu.scene.presets import build_final_scene
 from path_tracer_tpu_torch.convert import camera_from_numpy, scene_from_numpy
 from path_tracer_tpu_torch.diff import queued_vjp as TQ
+from tools import make_jax_goldens as golden
 
 W, H, SPP, DEPTH = 16, 12, 2, 4
 INT_PLANES = ("pix", "s", "fresh", "texel", "fixk")
@@ -63,13 +65,13 @@ def both():
     cam = camera_from_numpy(jax.tree_util.tree_map(np.asarray, jc))
     jf = JQ.render_grad_fb(W, H, W * H, SPP, max_depth=DEPTH,
                            attenuate=True)
-    zero = jnp.float32(0.0)
-    jfb, jrec, jok = jax.jit(lambda s, c: JQ.record_forward_q(
-        s, c, W, H, zero, zero, **_rcfg(jf.cfg)))(js, jc)
+    g = golden.load("torch_record", dict(width=W, height=H, spp=SPP,
+                                         max_depth=DEPTH, attenuate=True))
+    stage = JQ.ResQ(*[0] * len(JQ.ResQ._fields))
+    jrec = golden.unflatten(g, "rec", JQ.RecQ(stage, stage, 0, 0))
     cfg, fb, rec, ok = _record(scene, cam)
-    return dict(scene=scene, cam=cam, jcfg=jf.cfg, jfb=np.asarray(jfb),
-                jrec=jax.tree_util.tree_map(np.asarray, jrec),
-                jok=bool(jok), cfg=cfg, fb=fb, rec=rec, ok=bool(ok))
+    return dict(scene=scene, cam=cam, jcfg=jf.cfg, jfb=g["fb"], jrec=jrec,
+                jok=bool(g["ok"]), cfg=cfg, fb=fb, rec=rec, ok=bool(ok))
 
 
 def test_schedule_and_ok_match(both):

@@ -9,27 +9,24 @@ holds one reference train step).  On it:
   another order), the reference's tests/test_sharding.py tolerance;
 - the sharded train step of tests/test_torch_train.py's setting (16x8,
   depth 3, 2 spp a rank, the material colours' x raised by 0.2, SGD at
-  lr 0.5 on the material colours only), against the reference's
-  `make_train_step` on an in-process virtual-device mesh of the same
-  shape, first call only (its second call fails, ROADMAP Queue 3), with
-  its FETCH_MODE "high" inside the fixture: the loss within 1e-4
-  relative, every updated param within 1e-6, test_torch_train.py's
-  tolerances; both ranks end with bit-equal params;
+  lr 0.5 on the material colours only, the reference's work-queue render
+  at 4 spp as the target), against the reference's `make_train_step` on
+  a virtual-device mesh of the same shape, first call only (its second
+  call fails, ROADMAP Queue 3), with its FETCH_MODE "high": the loss
+  within 1e-4 relative, every updated param within 1e-6,
+  test_torch_train.py's tolerances; both ranks end with bit-equal params;
 - a second port step, which must lower the loss.
-The ranks run while the reference's step compiles, each on one intra-op
-thread (OMP_NUM_THREADS), since they share the host's cores with the
-other test workers.
+The reference's step and target are read from the golden
+tests/golden/jax_ref/torch_sharded.npz (torch_sharded_spp.npz for the
+(1x2) mesh), which tools/make_jax_goldens.py records from the frozen
+package.  The ranks run each on one intra-op thread (OMP_NUM_THREADS),
+since they share the host's cores with the other test workers.
 """
-from concurrent.futures import ThreadPoolExecutor
-
 import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from path_tracer_tpu.diff import queued_vjp as JQ
-from path_tracer_tpu.parallel import mesh as JM
 from path_tracer_tpu.scene.presets import THREE_SPHERES
 from path_tracer_tpu_torch.convert import camera_from_numpy, scene_from_numpy
 from path_tracer_tpu_torch.diff import params as TP
@@ -37,16 +34,11 @@ from path_tracer_tpu_torch.engine.wq import render_wq
 from path_tracer_tpu_torch.parallel import launch
 from path_tracer_tpu_torch.parallel import mesh as TM
 from path_tracer_tpu_torch.parallel.multihost import assemble_image
+from test_torch_train import step_golden
+from tools.make_jax_goldens import perturb
 
 W, H, DEPTH, SPP, LOCAL_SPP, LR = 16, 8, 3, 4, 2, 0.5
 SHAPE = (2, 1)
-
-
-def _perturb(params, add):
-    scene_p, cam_p = params
-    c = scene_p.materials.color
-    return (scene_p._replace(materials=scene_p.materials._replace(
-        color=type(c)(c.x + add, c.y, c.z))), cam_p)
 
 
 def _only_material_colors(grads):
@@ -66,7 +58,7 @@ def rank_work(scene_np, cam_np, target, shape):
     steps' losses and the first step's params (numpy)."""
     scene, cam = scene_from_numpy(scene_np, "cpu"), camera_from_numpy(cam_np)
     params, (s_scene, s_cam) = TM.scene_camera_params(scene, cam)
-    params = _perturb(params, 0.2)
+    params = perturb(params, 0.2)
     target = torch.from_numpy(target)
     pix = torch.arange(W * H)
     mesh = TM.make_mesh(*shape, device="cpu")
@@ -80,45 +72,25 @@ def rank_work(scene_np, cam_np, target, shape):
                 tile=(mesh.tile, mesh.spp))
 
 
-def run_both(shape):
+def run_both(shape, name):
     """The two ranks' results at `shape`, the reference's first step on
-    the same mesh shape, the port's render_wq frame and the perturbed
-    params."""
+    the same mesh shape (golden `name`), the port's render_wq frame and
+    the perturbed params."""
     js, jc = THREE_SPHERES.build()
     scene_np = jax.tree_util.tree_map(np.asarray, js)
     cam_np = jax.tree_util.tree_map(np.asarray, jc)
     scene, cam = scene_from_numpy(scene_np, "cpu"), camera_from_numpy(cam_np)
     single = render_wq(scene, cam, W, H, SPP, max_depth=DEPTH,
                        device="cpu").numpy()
-    target = single.reshape(W * H, 3)
-    with ThreadPoolExecutor(1) as pool, pytest.MonkeyPatch.context() as env:
+    target, jnew, jloss = step_golden(name, shape)
+    with pytest.MonkeyPatch.context() as env:
         env.setenv("OMP_NUM_THREADS", "1")      # read by the spawned ranks
-        ranks = pool.submit(launch.spawn, rank_work, 2,
-                            (scene_np, cam_np, target, shape), device="cpu")
-        jparams, (js_s, jc_s) = JM.scene_camera_params(js, jc)
-        jparams = _perturb(jparams, 0.2)
-
-        def jfilter(grads):
-            zs, zc = jax.tree_util.tree_map(
-                lambda g: jnp.zeros_like(g) if g is not None else None, grads,
-                is_leaf=lambda x: x is None)
-            return (zs._replace(materials=zs.materials._replace(
-                color=grads[0].materials.color)), zc)
-
-        with pytest.MonkeyPatch.context() as mp:
-            mp.setattr(JQ, "FETCH_MODE", "high")
-            mesh = JM.make_mesh(*shape, devices=jax.devices()[:2])
-            jstep = JM.make_train_step(js_s, jc_s, W, H, LOCAL_SPP, DEPTH,
-                                       mesh, lr=LR, grad_filter=jfilter)
-            jnew, jloss = jstep(jparams, jnp.asarray(target),
-                                jnp.arange(W * H, dtype=jnp.uint32))
-        ranks = ranks.result()
-    jnew = jax.tree_util.tree_map(np.asarray, jnew)
-    ref = [x.numpy() for x in TP.leaves((scene_from_numpy(jnew[0], "cpu"),
-                                         camera_from_numpy(jnew[1])))]
-    params = _perturb(TM.scene_camera_params(scene, cam)[0], 0.2)
+        ranks = launch.spawn(rank_work, 2, (scene_np, cam_np, target, shape),
+                             device="cpu")
+    ref = [x.numpy() for x in TP.leaves(jnew)]
+    params = perturb(TM.scene_camera_params(scene, cam)[0], 0.2)
     return dict(shape=shape, single=single, ranks=ranks, ref=ref,
-                jloss=float(jloss), params=params)
+                jloss=jloss, params=params)
 
 
 def check_frame(runs):
@@ -168,7 +140,7 @@ def check_loss_falls(runs):
 
 @pytest.fixture(scope="module")
 def runs():
-    return run_both(SHAPE)
+    return run_both(SHAPE, "torch_sharded")
 
 
 def test_assembled_frame_matches_render_wq(runs):

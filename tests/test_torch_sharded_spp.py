@@ -13,7 +13,7 @@ from test_torch_sharded import (check_frame, check_grid, check_loss,
 
 @pytest.fixture(scope="module")
 def runs():
-    return run_both((1, 2))
+    return run_both((1, 2), "torch_sharded_spp")
 
 
 def test_assembled_frame_matches_render_wq(runs):

@@ -4,9 +4,12 @@ against the reference's `make_train_step` on a 1x1 mesh, on the CPU.
 Setup of tests/test_sharding.py:60-96: the three-sphere scene at 16x8,
 depth 3, 2 spp a step, the material colours' x perturbed by +0.2, SGD at
 lr 0.5 on the material colours only (`grad_filter`).  Both steps take the
-same target (the port's work-queue render at 4 spp, as numpy) and the
-same params (carried across with `convert`); the reference runs with its
-FETCH_MODE "high" (exact f32 fetch) inside the fixture only.
+same target (the reference's work-queue render at 4 spp) and the same
+params (carried across with `convert`); the reference runs with its
+FETCH_MODE "high" (exact f32 fetch).  The reference's step and target are
+read from the golden tests/golden/jax_ref/torch_train.npz, which
+tools/make_jax_goldens.py records from the frozen package at these
+inputs.
 Tolerances: the loss within 1e-4 relative (the recordings' knife-edge
 lanes and the sum order), every updated param within 1e-6 of the
 reference's, and the update p' - p within 2e-2 relative L2 of the
@@ -15,27 +18,18 @@ backend="pallas" (the reference's name for the route) takes the same step
 as the default backend="queued".
 """
 import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from path_tracer_tpu.diff import queued_vjp as JQ
 from path_tracer_tpu.parallel import mesh as JM
 from path_tracer_tpu.scene.presets import THREE_SPHERES
 from path_tracer_tpu_torch.convert import camera_from_numpy, scene_from_numpy
 from path_tracer_tpu_torch.diff import params as TP
-from path_tracer_tpu_torch.engine.wq import render_wq
 from path_tracer_tpu_torch.parallel import mesh as TM
+from tools import make_jax_goldens as golden
 
 W, H, DEPTH, LOCAL_SPP, LR = 16, 8, 3, 2, 0.5
-
-
-def _perturb(params, add):
-    scene_p, cam_p = params
-    c = scene_p.materials.color
-    return (scene_p._replace(materials=scene_p.materials._replace(
-        color=type(c)(c.x + add, c.y, c.z))), cam_p)
 
 
 def _only_material_colors(zeros_like):
@@ -53,35 +47,29 @@ def _port_tree(jtree):
     return (scene_from_numpy(jtree[0], "cpu"), camera_from_numpy(jtree[1]))
 
 
+def step_golden(name, mesh):
+    """The reference's first step on `mesh` (its target, updated params
+    and loss), from the golden `name`."""
+    g = golden.load(name, dict(
+        scene="three_spheres", width=W, height=H, max_depth=DEPTH,
+        local_spp=LOCAL_SPP, lr=LR, perturb_color_x=0.2, target_spp=4,
+        fetch_mode="high", mesh=list(mesh)))
+    js, jc = THREE_SPHERES.build()
+    like = JM.scene_camera_params(js, jc)[0]
+    return g["target"], _port_tree(golden.unflatten(g, "new", like)), float(
+        g["loss"])
+
+
 @pytest.fixture(scope="module")
 def steps():
     js, jc = THREE_SPHERES.build()
     scene = scene_from_numpy(jax.tree_util.tree_map(np.asarray, js), "cpu")
     cam = camera_from_numpy(jax.tree_util.tree_map(np.asarray, jc))
-    target = render_wq(scene, cam, W, H, 4, max_depth=DEPTH,
-                       device="cpu").reshape(W * H, 3)
-
-    jparams, (js_s, jc_s) = JM.scene_camera_params(js, jc)
-    jparams = _perturb(jparams, 0.2)
-    mesh = JM.make_mesh(n_tiles=1, n_spp=1, devices=jax.devices()[:1])
-
-    def jfilter(grads):
-        zeros = jax.tree_util.tree_map(
-            lambda g: jnp.zeros_like(g) if g is not None else None, grads,
-            is_leaf=lambda x: x is None)
-        zs, zc = zeros
-        return (zs._replace(materials=zs.materials._replace(
-            color=grads[0].materials.color)), zc)
-
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(JQ, "FETCH_MODE", "high")
-        jstep = JM.make_train_step(js_s, jc_s, W, H, LOCAL_SPP, DEPTH, mesh,
-                                   lr=LR, grad_filter=jfilter)
-        jnew, jloss = jstep(jparams, jnp.asarray(target.numpy()),
-                            jnp.arange(W * H, dtype=jnp.uint32))
+    target, jnew, jloss = step_golden("torch_train", (1, 1))
+    target = torch.from_numpy(target)
 
     params, (s_scene, s_cam) = TM.scene_camera_params(scene, cam)
-    params = _perturb(params, 0.2)
+    params = golden.perturb(params, 0.2)
     step = TM.make_train_step(s_scene, s_cam, W, H, LOCAL_SPP, DEPTH, lr=LR,
                               grad_filter=_only_material_colors(
                                   torch.zeros_like), device="cpu")
@@ -92,9 +80,9 @@ def steps():
     for _ in range(2):
         p, l2 = step(p, target, pix)
         losses.append(float(l2))
-    return dict(params=params, new=new, loss=float(loss),
-                jnew=_port_tree(jnew), jloss=float(jloss), losses=losses,
-                static=(s_scene, s_cam), target=target)
+    return dict(params=params, new=new, loss=float(loss), jnew=jnew,
+                jloss=jloss, losses=losses, static=(s_scene, s_cam),
+                target=target)
 
 
 def test_loss_matches_reference(steps):

@@ -34,18 +34,12 @@ from path_tracer_tpu_torch.diff import params as TP
 from path_tracer_tpu_torch.engine.integrator import render_perf
 from path_tracer_tpu_torch.engine.wq import render_wq
 from path_tracer_tpu_torch.parallel import mesh as TM
+from tools.make_jax_goldens import perturb
 
 W, H, DEPTH, LOCAL_SPP, LR = 16, 8, 3, 2, 0.5
 RSPP = 5
 EDGE = [1]
 EDGE_KW = dict(n_edge=32, spp_edge=4, max_depth=DEPTH)
-
-
-def _perturb(params, add):
-    scene_p, cam_p = params
-    c = scene_p.materials.color
-    return (scene_p._replace(materials=scene_p.materials._replace(
-        color=type(c)(c.x + add, c.y, c.z))), cam_p)
 
 
 def _np_tree(t):
@@ -66,7 +60,7 @@ def run():
     jstep = JM.make_train_step(js_s, jc_s, W, H, LOCAL_SPP, DEPTH, mesh,
                                lr=LR, backend="jnp", geometry_edge=EDGE,
                                edge_kwargs=EDGE_KW)
-    jnew, jloss = jstep(_perturb(jparams, 0.2), jnp.asarray(target.numpy()),
+    jnew, jloss = jstep(perturb(jparams, 0.2), jnp.asarray(target.numpy()),
                         jnp.arange(W * H, dtype=jnp.uint32))
     jnew = jax.tree_util.tree_map(np.asarray, jnew)
     return dict(scene=scene, cam=cam, jframe=jframe, target=target,
@@ -111,7 +105,7 @@ def test_render_sharded_jnp_shards_add_up(run):
 def _port_step(run, geometry_edge):
     params, (s_scene, s_cam) = TM.scene_camera_params(run["scene"],
                                                       run["cam"])
-    params = _perturb(params, 0.2)
+    params = perturb(params, 0.2)
     step = TM.make_train_step(s_scene, s_cam, W, H, LOCAL_SPP, DEPTH, lr=LR,
                               device="cpu", backend="jnp",
                               geometry_edge=geometry_edge,

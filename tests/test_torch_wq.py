@@ -1,7 +1,9 @@
 """The port's work-queue render against the reference's, on the CPU.
 
 The same scene (carried across with `convert`) goes through the
-reference's `render_wq` (its kernel in interpret mode) and the port's
+reference's `render_wq` (its kernel in interpret mode; read from the
+golden tests/golden/jax_ref/<name>.npz, which tools/make_jax_goldens.py
+records from the frozen package at these inputs) and the port's
 `render_wq(device="cpu")` (the kernel's plain version).  The envelope is
 tests/test_wq.py's: knife-edge pixels, where a one-rounding difference
 flips a discrete branch (docs/PERF_NOTES.md:67-75), may deviate, so at
@@ -22,18 +24,22 @@ from path_tracer_tpu_torch.convert import camera_from_numpy, scene_from_numpy
 from path_tracer_tpu_torch.engine import wq as TWQ
 from path_tracer_tpu_torch.ops import wave_bounce as TWB
 from path_tracer_tpu_torch.scene import presets as TP
+from tools import make_jax_goldens as golden
 
 
-def render_both(w, h, spp, depth, tile_rows, window):
+def render_both(name, w, h, spp, depth, tile_rows, window):
+    """The reference's render of the final scene (golden `name`) and the
+    port's, each as (img, segments, iterations, lane steps)."""
+    g = golden.load(name, dict(scene="final_scene", aspect=1.5, width=w,
+                               height=h, spp=spp, max_depth=depth,
+                               tile_rows=tile_rows, window=window))
     js, jc = build_final_scene(1.5)
     scene = scene_from_numpy(jax.tree_util.tree_map(np.asarray, js), "cpu")
     cam = camera_from_numpy(jax.tree_util.tree_map(np.asarray, jc))
-    ref = JWQ.render_wq(js, jc, w, h, spp, max_depth=depth,
-                        tile_rows=tile_rows, window=window, return_stats=True)
     port = TWQ.render_wq(scene, cam, w, h, spp, max_depth=depth,
                          tile_rows=tile_rows, window=window,
                          return_stats=True, device="cpu")
-    return ([np.asarray(ref[0]), float(ref[1]), int(ref[2]), float(ref[3])],
+    return ([g["img"], float(g["segs"]), int(g["iters"]), float(g["lanes"])],
             [port[0].numpy(), port[1], port[2], port[3]])
 
 
@@ -49,7 +55,7 @@ def assert_envelope(ref, port):
 
 @pytest.fixture(scope="module")
 def final_24x16():
-    return render_both(24, 16, 4, 8, tile_rows=4, window=3)
+    return render_both("torch_wq", 24, 16, 4, 8, tile_rows=4, window=3)
 
 
 def test_render_wq_final_scene_matches_reference(final_24x16):
