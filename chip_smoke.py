@@ -40,7 +40,10 @@ Phases, each of which raises on failure (exit code != 0):
    (bench.py's setting), after a short warm-up; prints bench.py's JSON
    fields with "backend": "cuda", checks the kernel's launch count equals
    the bounce iterations, prints the CUDA events around each launch
-   grouped by lane count, and writes the frame to build/ (git-ignored);
+   grouped by lane count, renders the frame again on the eager driver
+   (`eager_driver`) and holds the replayed frame bit-equal to it, with
+   the same launches and lanes, and writes the frame to build/
+   (git-ignored);
 6. the nearest-sphere spike (K2) at the reference tool's three calls,
    64, 1024 and 4096 rows of 128 rays (P = 512): at each, the plain
    version's time, the kernel forced to every K (bit-equal to the plain
@@ -355,7 +358,7 @@ def phase_media(dev) -> dict:
     for n_med in (4, 6):
         scene, cam = probe.media_scene(W / H, n_med, device=dev)
         tables = WB.pack_scene(scene)._replace(
-            cam=WB.pack_camera(cam, W, H, dev), seed=0)
+            cam=WB.pack_camera(cam, W, H, dev))
         atlas, _ = _pack_atlas_flat(scene.textures.atlas)
         st, fix, texel, srv = probe.probe_state(
             tables, cam, W, H, atlas, rows=rows, bounces=3, max_depth=DEPTH,
@@ -391,16 +394,33 @@ def phase_media(dev) -> dict:
     return out
 
 
+class eager_driver:
+    """Within the block the windowed driver runs every window eagerly: a
+    hook on K1's `_launch` sees only the launches Python makes, and a
+    window replayed as a CUDA graph makes none."""
+
+    def __enter__(self):
+        from path_tracer_tpu_torch.engine import wq
+        self.wq, self.replays = wq, wq._replays
+        wq._replays = lambda dev: False
+        return self
+
+    def __exit__(self, *exc):
+        self.wq._replays = self.replays
+
+
 def check_every_launch(what: str):
     """A context in which every K1 launch is held bit-equal to the plain
     version on its own inputs, on every plane; `.n` counts them and
-    `.max_abs` is the largest float difference (0 when bit-equal)."""
+    `.max_abs` is the largest float difference (0 when bit-equal).  The
+    windowed driver's windows run eagerly there (`eager_driver`)."""
     from path_tracer_tpu_torch.ops import wave_bounce as WB
 
     class Checked:
         n, max_abs = 0, 0.0
 
         def __enter__(self):
+            self.eager = eager_driver().__enter__()
             self.launch = launch = WB._launch
 
             def checked(tables, st, fix, texel, srv, t_min, max_depth,
@@ -426,6 +446,7 @@ def check_every_launch(what: str):
 
         def __exit__(self, *exc):
             WB._launch = self.launch
+            self.eager.__exit__(*exc)
 
     return Checked()
 
@@ -451,7 +472,7 @@ def phase_caps(dev) -> dict:
                                                           device=dev))):
         scene, cam = build()
         tables = WB.pack_scene(scene)._replace(
-            cam=WB.pack_camera(cam, W, H, dev), seed=0)
+            cam=WB.pack_camera(cam, W, H, dev))
         variant = WB.k1_variant(tables.med.shape[1],
                                 tables.fold.shape[0] * 16)
         if variant != "global":
@@ -564,7 +585,7 @@ def main(old_kernel=None, old_pmat=None) -> list:
     # ---- 3. kernel against plain at full width ---------------------------
     scene, cam = build_final_scene(W / H, device=dev)
     tables = WB.pack_scene(scene)._replace(
-        cam=WB.pack_camera(cam, W, H, dev), seed=0)
+        cam=WB.pack_camera(cam, W, H, dev))
     atlas, _ = _pack_atlas_flat(scene.textures.atlas)
     rows = -(-W * H // (64 * 128)) * 64            # render_wq's lane count
     st, fix, texel, srv = probe.probe_state(
@@ -634,7 +655,9 @@ def main(old_kernel=None, old_pmat=None) -> list:
     dt = time.perf_counter() - t0
     launches, events = WB.wave_bounce.launches, WB.wave_bounce.events
     WB.wave_bounce.events = None
-    kern_ms = sum(s.elapsed_time(e) for _, s, e in events)
+    # a replayed window's launches share one pair of events around it
+    kern_ms = sum(s.elapsed_time(e) for s, e in
+                  dict.fromkeys((s, e) for _, s, e in events))
     samples = W * H * SPP
     mray_s = segs / dt / 1e6
     log(json.dumps({
@@ -647,20 +670,46 @@ def main(old_kernel=None, old_pmat=None) -> list:
         "occupancy": round(segs / lane_steps, 3),
         "wq_iters": iters, "backend": "cuda"}))
     log(f"[5] {SPP} spp in {dt:.3f} s; wave_bounce launches {launches} "
-        f"(wq_iters {iters}); kernel time {kern_ms:.1f} ms total, "
-        f"{kern_ms / max(launches, 1):.4f} ms/launch "
-        f"({100 * kern_ms / 1e3 / dt:.1f}% of wall)")
+        f"(wq_iters {iters}); time inside K1's events {kern_ms:.1f} ms "
+        f"total, {kern_ms / max(launches, 1):.4f} ms/launch "
+        f"({100 * kern_ms / 1e3 / dt:.1f}% of wall; a replayed window's "
+        f"events span the whole window)")
     if launches != iters or launches == 0:
         raise AssertionError(f"launches {launches} != wq_iters {iters}")
-    by_width = {}
+    by_width, seen = {}, set()
     for lanes, s, e in events:
         n, ms_ = by_width.get(lanes, (0, 0.0))
-        by_width[lanes] = (n + 1, ms_ + s.elapsed_time(e))
+        by_width[lanes] = (n + 1, ms_ + (0.0 if (s, e) in seen
+                                        else s.elapsed_time(e)))
+        seen.add((s, e))
     log("[5] events around each launch, by lane count: " + "; ".join(
         f"{lanes} lanes (K={WB.split_for(lanes)}): {n} launches, "
         f"{ms_:.1f} ms, {ms_ / n:.4f} ms each"
         for lanes, (n, ms_) in sorted(by_width.items(), reverse=True)))
     kernel_row["launches"] = launches
+    # the same frame on the eager driver, whose launches the hooks of the
+    # other phases hold bit-equal: the replayed frame must give its bits
+    WB.wave_bounce.launches = 0
+    WB.wave_bounce.events = []
+    with eager_driver():
+        e_img, e_segs, e_iters, _ = render_wq(
+            scene, cam, W, H, SPP, max_depth=DEPTH, return_stats=True,
+            device=dev)
+    torch.cuda.synchronize()
+    e_launches, e_events = WB.wave_bounce.launches, WB.wave_bounce.events
+    WB.wave_bounce.events = None
+    lanes_of = lambda evs: sorted(n for n, _, _ in evs)
+    same = (torch.equal(img.view(torch.int32), e_img.view(torch.int32))
+            and (segs, iters) == (e_segs, e_iters)
+            and e_launches == launches
+            and lanes_of(e_events) == lanes_of(events))
+    log(f"[5] the frame again on the eager driver: bit-equal {same}, "
+        f"launches {e_launches}, lanes {sum(lanes_of(e_events))} "
+        f"(replayed: {sum(lanes_of(events))})")
+    if not same:
+        raise AssertionError("the replayed main-path frame differs from "
+                             "the eager driver's")
+    del e_img, e_events
     frame = img.cpu().numpy()
     if frame.shape != (H, W, 3) or not np.isfinite(frame).all():
         raise AssertionError("the main-path frame is not finite (H, W, 3)")
@@ -1100,7 +1149,7 @@ def forward_cases(dev) -> list:
     from path_tracer_tpu_torch.scene.presets import build_final_scene
     scene, cam = build_final_scene(W / H, device=dev)
     tables = WB.pack_scene(scene)._replace(
-        cam=WB.pack_camera(cam, W, H, dev), seed=0)
+        cam=WB.pack_camera(cam, W, H, dev))
     atlas, _ = _pack_atlas_flat(scene.textures.atlas)
     kw = dict(t_min=1e-3, max_depth=DEPTH, attenuate=False)
     rows = -(-W * H // (64 * 128)) * 64
@@ -1248,13 +1297,15 @@ def kernel_ops(trace_path: str, launches: int) -> dict:
 
 class keep_launch:
     """Within the block, copy the inputs of K1's KEPT_LAUNCH-th launch at
-    the first (widest) lane count that has live lanes, for `check_kept`."""
+    the first (widest) lane count that has live lanes, for `check_kept`.
+    The windowed driver's windows run eagerly there (`eager_driver`)."""
 
     def __init__(self):
         from path_tracer_tpu_torch.ops import wave_bounce as WB
         self.WB, self.seen, self.args = WB, 0, None
 
     def __enter__(self):
+        self.eager = eager_driver().__enter__()
         launch = self.launch = self.WB._launch
 
         def hook(tables, st, fix, texel, srv, t_min, max_depth, attenuate,
@@ -1279,6 +1330,7 @@ class keep_launch:
 
     def __exit__(self, *exc):
         self.WB._launch = self.launch
+        self.eager.__exit__(*exc)
 
 
 def check_kept(what: str, kept: keep_launch, tag: str = "11") -> dict:

@@ -19,16 +19,42 @@ uses the same float64 evaluation, so the two agree.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from collections import OrderedDict
+from typing import NamedTuple, Tuple
 
 import torch
+
+DIVISORS = 256    # divisor constants kept (the least recently used goes)
+_divisors: "OrderedDict[tuple, torch.Tensor]" = OrderedDict()
+
+
+def divisor(d: float, dtype: torch.dtype, device: torch.device
+            ) -> torch.Tensor:
+    """d as a 0-d tensor of `dtype` on `device`, made once per (value,
+    dtype, device): making one on the card copies it from the host and
+    waits, which a CUDA graph's capture refuses.  The value is keyed by
+    its bits, so -0.0 and 0.0 (and NaNs) stay apart."""
+    key = (float(d).hex(), dtype, torch.device(device))
+    t = _divisors.pop(key, None)
+    if t is None:
+        if len(_divisors) >= DIVISORS:
+            _divisors.popitem(last=False)
+        t = torch.tensor(d, dtype=dtype, device=device)
+    _divisors[key] = t
+    return t
+
+
+def live_divisors() -> Tuple[torch.Tensor, ...]:
+    """The divisor constants held now: a CUDA graph reads each from its
+    address, so one captured with them keeps these alive."""
+    return tuple(_divisors.values())
 
 
 def fdiv(x: torch.Tensor, d: float) -> torch.Tensor:
     """x / d with an IEEE divide on every device: PyTorch's CUDA kernels
     turn `tensor / python_number` into a multiply by the reciprocal, which
     rounds differently; a 0-d divisor on x's device keeps the divide."""
-    return x / torch.tensor(d, dtype=x.dtype, device=x.device)
+    return x / divisor(d, x.dtype, x.device)
 
 
 def fsqrt(x: torch.Tensor) -> torch.Tensor:

@@ -119,7 +119,8 @@ def record_forward(scene: T.Scene, cam: Camera, width: int, height: int,
     sh = (rows, LANE)
     seed = int(seed) & MASK32
     tables = WB.pack_scene(scene, dev)._replace(
-        cam=WB.pack_camera(cam, width, height, dev), seed=seed)
+        cam=WB.pack_camera(cam, width, height, dev),
+        seed=WB.seed_word(seed, dev))
     atlas_flat, n_atlas = WQ._pack_atlas_flat(scene.textures.atlas.to(dev))
 
     pix_f, samp_f = _padded_ids(pix, samp, lanes, dev)

@@ -144,7 +144,8 @@ def record_forward_q(scene: T.Scene, cam: Camera, width: int, height: int,
     samp_base_f = float(samp_base)
 
     tables = WB.pack_scene(scene, dev)._replace(
-        cam=WB.pack_camera(cam, width, height, dev), seed=int(seed) & MASK32)
+        cam=WB.pack_camera(cam, width, height, dev),
+        seed=WB.seed_word(seed, dev))
     atlas_flat, n_atlas = WQ._pack_atlas_flat(scene.textures.atlas.to(dev))
     w = torch.where
 

@@ -24,6 +24,18 @@ per window for its condition (chunks left, or more live lanes than the
 first drain stage holds).  Once the queue is empty the live lanes are
 compacted into 4x narrower grids (the drain stages) as they die out.
 
+A window is one function, `window_body`.  The CPU runs it eagerly.  On
+the card each kind of window (its rows, whether it refills, whether it
+deposits) runs eagerly the first time a call shape meets it, is captured
+as a CUDA graph the second time, and is replayed from then on, in this
+call and in later calls of the same shape (`WindowPlan`): a few hundred
+small ATen launches a bounce become one graph launch a window, and a
+call whose shape is seen once costs what the eager driver costs.  A
+graph reads the call's values from device memory (the packed tables and
+camera, the seed, the queue's length, the pixel and sample bases), so
+only what a window takes as a Python value (sizes, the depth) keys a
+capture: a moving camera or a new seed replays the same graphs.
+
 Deposits add in a fixed order: every contribution to one framebuffer
 entry is added sequentially in the order the reference's scatter-adds
 take them (bank slot 0's lanes, then slot 1's, each in lane order), via a
@@ -32,14 +44,15 @@ every run and device and does not depend on thread timing.
 """
 from __future__ import annotations
 
+from collections import OrderedDict
 from typing import NamedTuple, Optional, Tuple, Union
 
 import torch
 
 from ..core.camera import Camera
 from ..core.device import resolve_device
-from ..core.rng import INITIAL_STATE, MASK32, f32, splitmix32
-from ..core.vec import fdiv
+from ..core.rng import INITIAL_STATE, f32, splitmix32
+from ..core.vec import fdiv, live_divisors
 from ..scene import types as T
 from ..ops import wave_bounce as WB
 from .integrator import camera_rays
@@ -261,6 +274,291 @@ def compact(st: WB.WaveState, fx: WB.FixState, new_rows: int):
     return st2, fx2, perm, valid, nlive
 
 
+class WindowCall(NamedTuple):
+    """What every window of one `wq_window_fb` call reads besides its
+    carry.  The values that change from call to call without changing a
+    window's shape (the packed tables, among them the camera and the
+    seed, the atlas, the queue's length, the chunks a pixel, the pixel
+    and sample bases) are tensors on the device, so a captured window
+    reads them from memory; the rest are Python values, and key the
+    capture."""
+    tables: WB.SceneTables      # the refill's camera is WB.table_camera's
+    atlas_flat: torch.Tensor
+    n_chunks: torch.Tensor      # 0-d int64: chunks the queue grants
+    vcpp: torch.Tensor          # 0-d int64: chunks a pixel, >= 1
+    pix_base: torch.Tensor      # 0-d f32
+    samp_base: torch.Tensor     # 0-d f32
+    n_atlas: int
+    width: int
+    height: int
+    chunk: int
+    cpp: int                    # contributions an entry takes at most
+    n_pix_loc: int
+    window: int
+    max_depth: int
+    attenuate: bool
+    t_min: float
+    tile_rows: int
+
+
+CALL_INPUTS = WindowCall._fields[:6]   # the tensors a call copies in
+
+
+class Carry(NamedTuple):
+    """A window's state, in and out.  A drain window (no refill, no
+    deposit) carries no banks and no framebuffer: ex and fb are None."""
+    st: WB.WaveState
+    ex: Optional[WqwExtra]
+    fx: WB.FixState
+    fb: Optional[torch.Tensor]
+    counter: torch.Tensor       # 0-d int64: chunks granted
+
+
+def zero_carry(rows: int, n_pix: int, device) -> Carry:
+    """A first window's carry: no lane holds a chunk, the banks are empty,
+    the framebuffer (n_pix per plane plus the drop slot) is zero."""
+    return Carry(st=_zeros_state(rows, device), ex=_zeros_extra(rows, device),
+                 fx=WB.zero_fix(rows, device),
+                 fb=torch.zeros(3 * n_pix + 1, dtype=torch.float32,
+                                device=device),
+                 counter=torch.zeros((), dtype=torch.long, device=device))
+
+
+def _leaves(tree) -> list:
+    """The tensors of nested tuples, in order; None is skipped."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, tuple):
+        return [t for x in tree for t in _leaves(x)]
+    return []
+
+
+def _clone(tree):
+    """Nested NamedTuples with every tensor cloned, so that no two share
+    memory even where the original's did; None stays None."""
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().clone()
+    if isinstance(tree, tuple):
+        return type(tree)(*[_clone(x) for x in tree])
+    return tree
+
+
+def _copy_into(dst, src) -> None:
+    for d, s in zip(_leaves(dst), _leaves(src), strict=True):
+        d.copy_(s)
+
+
+def _refill(c: WindowCall, st: WB.WaveState, ex: WqwExtra,
+            counter: torch.Tensor, fx: WB.FixState):
+    """Grant dead lanes the next chunk and launch its first camera ray
+    (the kernel's in-chunk regeneration continues the same streams);
+    bank the finished chunk into a free deposit slot."""
+    sh = tuple(st.pix.shape)
+    f32 = torch.float32
+    slot0_free = ex.bpix0 < 0.0
+    slot1_free = ex.bpix1 < 0.0
+    had_chunk = st.pix >= 0.0
+    # a dead lane with a pending EMIT fixup keeps its acc until the
+    # texel service covers it (the kernel adds the emission then)
+    dead = (st.alive <= 0.0) & (fx.kind != WB.FIX_EMIT)
+    elig = dead & (slot0_free | slot1_free | ~had_chunk)
+    elig_i = elig.reshape(-1).long()
+    rank = torch.cumsum(elig_i, 0) - elig_i          # exclusive prefix
+    navail = c.n_chunks - counter
+    grant = (elig.reshape(-1) & (rank < navail)).reshape(sh)
+    cid = counter + rank.reshape(sh)
+    pix_new = c.pix_base + torch.div(
+        cid, c.vcpp, rounding_mode="floor").to(f32)
+    s0 = c.samp_base + ((cid % c.vcpp) * c.chunk).to(f32)
+
+    # the stream seed and camera ray of (pix_new, s0), for every lane
+    pix_u = pix_new.reshape(-1).long()
+    s_u = s0.reshape(-1).long()
+    rng0 = splitmix32(pix_u ^ splitmix32(s_u ^ c.tables.seed))
+    rng0 = torch.where(rng0 == 0, torch.full_like(rng0, INITIAL_STATE),
+                       rng0)
+    rng1, o, d, tmv = camera_rays(WB.table_camera(c.tables.cam), c.width,
+                                  c.height, pix_u, rng0)
+
+    do_bank = grant & had_chunk
+    use0 = do_bank & slot0_free
+    use1 = do_bank & ~slot0_free
+    w = torch.where
+    ex = WqwExtra(
+        bpix0=w(use0, st.pix, ex.bpix0), br0=w(use0, st.accx, ex.br0),
+        bg0=w(use0, st.accy, ex.bg0), bb0=w(use0, st.accz, ex.bb0),
+        bpix1=w(use1, st.pix, ex.bpix1), br1=w(use1, st.accx, ex.br1),
+        bg1=w(use1, st.accy, ex.bg1), bb1=w(use1, st.accz, ex.bb1))
+    sel = lambda new, old: w(grant, new.reshape(sh), old)
+    st = st._replace(
+        ox=sel(o.x, st.ox), oy=sel(o.y, st.oy), oz=sel(o.z, st.oz),
+        dx=sel(d.x, st.dx), dy=sel(d.y, st.dy), dz=sel(d.z, st.dz),
+        tm=sel(tmv, st.tm), rng=sel(rng1, st.rng),
+        tpx=w(grant, 1.0, st.tpx), tpy=w(grant, 1.0, st.tpy),
+        tpz=w(grant, 1.0, st.tpz), radx=w(grant, 0.0, st.radx),
+        rady=w(grant, 0.0, st.rady), radz=w(grant, 0.0, st.radz),
+        alive=w(grant, 1.0, st.alive), bnc=w(grant, 0.0, st.bnc),
+        pix=w(grant, pix_new, st.pix), s=w(grant, s0, st.s),
+        send=w(grant, s0 + float(c.chunk), st.send),
+        accx=w(grant, 0.0, st.accx), accy=w(grant, 0.0, st.accy),
+        accz=w(grant, 0.0, st.accz))
+    return st, ex, counter + torch.minimum(elig_i.sum(), navail)
+
+
+def _nlive(st: WB.WaveState, fx: WB.FixState) -> torch.Tensor:
+    # lanes with a pending fixup still owe work or radiance
+    return ((st.alive > 0.0) | (fx.kind != 0.0)).sum()
+
+
+def window_body(c: WindowCall, cy: Carry, refill: bool
+                ) -> Tuple[Carry, torch.Tensor]:
+    """One window: `c.window` bounces of [refill] + texel service + K1,
+    then, where the carry has banks, their deposit.  The eager driver
+    (the CPU) runs it, and the card captures it (`WindowGraph`).
+    Returns the carry after it and the window's host read, an int64
+    (2,) tensor [chunks granted, live lanes]."""
+    st, ex, fx, fb, counter = cy
+    for k in range(c.window):
+        if refill:
+            st, ex, counter = _refill(c, st, ex, counter, fx)
+        texel, srv = texel_service(fx, k, c.atlas_flat, c.n_atlas)
+        out = WB.wave_bounce(c.tables, st, fix=fx, texel=texel, srv=srv,
+                             t_min=c.t_min, max_depth=c.max_depth,
+                             attenuate=c.attenuate, tile_rows=c.tile_rows)
+        st, fx = out.state, out.fix
+    if ex is not None:
+        ex, fb = deposit(ex, fb, c.n_pix_loc, c.cpp, c.pix_base)
+    return (Carry(st, ex, fx, fb, counter),
+            torch.stack([counter, _nlive(st, fx)]))
+
+
+GRAPH_PLANS = 4   # call shapes whose captured windows the card keeps
+_plans: "OrderedDict[tuple, WindowPlan]" = OrderedDict()
+_pools: dict = {}  # device -> the memory pool its captured windows share
+
+
+class WindowGraph:
+    """One kind of window captured as a CUDA graph over `window_body`,
+    on the current device.  The graph reads the plan's call inputs and
+    its own static carry, and its last nodes copy the window's final
+    carry back into that static carry and the host read into `read`: a
+    replay continues where the last one ended.  Capturing runs nothing."""
+
+    def __init__(self, c: WindowCall, static: Carry, refill: bool, pool):
+        self.carry = static
+        self.device = static.counter.device
+        self.read = torch.zeros(2, dtype=torch.int64, device=self.device)
+        self.graph = torch.cuda.CUDAGraph()
+        self.lanes: list = []           # of each captured K1 launch
+        WB.wave_bounce.captured = self.lanes
+        try:
+            with torch.cuda.graph(self.graph, pool=pool):
+                out, read = window_body(c, static, refill)
+                _copy_into(static, out)
+                self.read.copy_(read)
+        finally:
+            WB.wave_bounce.captured = None
+        self.divisors = live_divisors()   # the graph reads them in place
+
+    def replay(self) -> None:
+        WB.count_replay(self.lanes, self.graph.replay, self.device)
+
+
+class WindowPlan:
+    """A call shape's windows on the card: the static call inputs, which
+    each call copies its own into (`load`), the kinds of window (rows,
+    refill, deposit) run once, and one `WindowGraph` a kind run twice."""
+
+    def __init__(self, c: WindowCall):
+        self.call = c._replace(**{f: _clone(getattr(c, f))
+                                  for f in CALL_INPUTS})
+        self.seen: set = set()
+        self.graphs: dict = {}
+
+    @torch.no_grad()
+    def load(self, c: WindowCall) -> None:
+        for f in CALL_INPUTS:
+            _copy_into(getattr(self.call, f), getattr(c, f))
+
+    @torch.no_grad()
+    def run(self, cy: Carry, refill: bool) -> Tuple[Carry, list]:
+        """One window from carry `cy`, on its device: run eagerly the
+        first time its kind comes, captured from a static copy of `cy`
+        the second time, and replayed then and after."""
+        kind = (cy.st.ox.shape[0], refill, cy.ex is not None)
+        dev = cy.counter.device
+        with torch.cuda.device(dev):
+            g = self.graphs.get(kind)
+            if g is None and kind not in self.seen:
+                self.seen.add(kind)
+                wq_window_fb.eager_windows += 1
+                cy, read = window_body(self.call, cy, refill)
+                return cy, read.tolist()
+            if g is None:
+                pool = _pools.setdefault(dev, torch.cuda.graph_pool_handle())
+                g = self.graphs[kind] = WindowGraph(self.call, _clone(cy),
+                                                    refill, pool)
+                wq_window_fb.captures += 1
+            elif cy is not g.carry:
+                _copy_into(g.carry, cy)
+            g.replay()
+            wq_window_fb.replays += 1
+            return g.carry, g.read.tolist()
+
+
+def _plan_key(c: WindowCall) -> tuple:
+    """Everything a captured window takes as a Python value."""
+    return (c.tables.cam.device, c.width, c.height, c.tile_rows,
+            c.window, c.chunk, c.cpp, c.n_pix_loc, c.n_atlas, c.max_depth,
+            float(c.t_min), bool(c.attenuate),
+            tuple(tuple(t.shape) for t in _leaves(c.tables)))
+
+
+def window_plan(c: WindowCall) -> WindowPlan:
+    """The card's plan for `c`'s shape, with `c`'s inputs loaded: kept
+    across calls, the least recently used of GRAPH_PLANS dropped."""
+    key = _plan_key(c)
+    plan = _plans.pop(key, None)
+    if plan is None:
+        if len(_plans) >= GRAPH_PLANS:
+            _plans.popitem(last=False)
+        plan = WindowPlan(c)
+    else:
+        plan.load(c)
+    _plans[key] = plan
+    return plan
+
+
+def _replays(dev: torch.device) -> bool:
+    """Whether the windows of a call on `dev` go through CUDA graphs: on
+    the card they do."""
+    return dev.type == "cuda"
+
+
+def window_call(scene: T.Scene, cam: Camera, width: int, height: int, *,
+                n_pix_loc: int, chunk: int, cpp: int, n_chunks: int,
+                vcpp: int, pix_base: int, samp_base: int, window: int,
+                max_depth: int, attenuate: bool, t_min: float,
+                tile_rows: int, seed: int, device: torch.device
+                ) -> WindowCall:
+    """The scene packed for K1 and one call's values, on `device`.  The
+    0-d words are written by fill kernels: nothing waits on the card."""
+    word = lambda v, dt: torch.full((), v, dtype=dt, device=device)
+    tables = WB.pack_scene(scene, device)._replace(
+        cam=WB.pack_camera(cam, width, height, device),
+        seed=WB.seed_word(seed, device))
+    atlas_flat, n_atlas = _pack_atlas_flat(scene.textures.atlas.to(device))
+    return WindowCall(
+        tables=tables, atlas_flat=atlas_flat,
+        n_chunks=word(n_chunks, torch.int64),
+        vcpp=word(max(vcpp, 1), torch.int64),
+        pix_base=word(float(pix_base), torch.float32),
+        samp_base=word(float(samp_base), torch.float32), n_atlas=n_atlas,
+        width=width, height=height, chunk=chunk, cpp=cpp,
+        n_pix_loc=n_pix_loc, window=window, max_depth=max_depth,
+        attenuate=attenuate, t_min=t_min, tile_rows=tile_rows)
+
+
 def wq_window_fb(scene: T.Scene, cam: Camera, width: int, height: int, *,
                  n_pix_loc: int, spp_loc: int, chunk: int, window: int,
                  max_depth: int, attenuate: bool, t_min: float,
@@ -274,7 +572,12 @@ def wq_window_fb(scene: T.Scene, cam: Camera, width: int, height: int, *,
     grants only its first `valid_pix` pixels and `valid_cpp` chunks of
     each (default: all).  Returns (fb_sum (n_pix_loc, 3) unnormalised,
     row i for pixel pix_base+i, traced_segments, bounce_iters,
-    lane_steps); occupancy = traced_segments / lane_steps."""
+    lane_steps); occupancy = traced_segments / lane_steps.
+
+    On the card each kind of window runs eagerly once, is captured as a
+    CUDA graph the second time (`WindowPlan`) and is replayed, in this
+    call and in later calls of the same shape; `wq_window_fb.captures`,
+    `.replays` and `.eager_windows` count them (the card's windows only)."""
     C = chunk
     cpp = spp_loc // C
     if cpp * C != spp_loc:
@@ -287,79 +590,20 @@ def wq_window_fb(scene: T.Scene, cam: Camera, width: int, height: int, *,
     valid_pix = n_pix_loc if valid_pix is None else int(valid_pix)
     valid_cpp = cpp if valid_cpp is None else int(valid_cpp)
     n_chunks = valid_pix * valid_cpp
-    vcpp = max(valid_cpp, 1)
     quantum = tile_rows * LANE
     rows = _round_up(min(n_pix_loc, n_pix_loc * spp_loc), quantum) // LANE
-    sh = (rows, LANE)
-    f32 = torch.float32
 
-    tables = WB.pack_scene(scene, dev)._replace(
-        cam=WB.pack_camera(cam, width, height, dev), seed=int(seed) & MASK32)
-    atlas_flat, n_atlas = _pack_atlas_flat(scene.textures.atlas.to(dev))
-
-    def step(st, fx, k):
-        texel, srv = texel_service(fx, k, atlas_flat, n_atlas)
-        out = WB.wave_bounce(tables, st, fix=fx, texel=texel, srv=srv,
-                             t_min=t_min, max_depth=max_depth,
-                             attenuate=attenuate, tile_rows=tile_rows)
-        return out.state, out.fix
-
-    def refill(st: WB.WaveState, ex: WqwExtra, counter: torch.Tensor,
-               fx: WB.FixState):
-        """Grant dead lanes the next chunk and launch its first camera ray
-        (the kernel's in-chunk regeneration continues the same streams);
-        bank the finished chunk into a free deposit slot."""
-        slot0_free = ex.bpix0 < 0.0
-        slot1_free = ex.bpix1 < 0.0
-        had_chunk = st.pix >= 0.0
-        # a dead lane with a pending EMIT fixup keeps its acc until the
-        # texel service covers it (the kernel adds the emission then)
-        dead = (st.alive <= 0.0) & (fx.kind != WB.FIX_EMIT)
-        elig = dead & (slot0_free | slot1_free | ~had_chunk)
-        elig_i = elig.reshape(-1).long()
-        rank = torch.cumsum(elig_i, 0) - elig_i          # exclusive prefix
-        navail = n_chunks - counter
-        grant = (elig.reshape(-1) & (rank < navail)).reshape(sh)
-        cid = counter + rank.reshape(sh)
-        pix_new = float(pix_base) + torch.div(
-            cid, vcpp, rounding_mode="floor").to(f32)
-        s0 = float(samp_base) + ((cid % vcpp) * C).to(f32)
-
-        # the stream seed and camera ray of (pix_new, s0), for every lane
-        pix_u = pix_new.reshape(-1).long()
-        s_u = s0.reshape(-1).long()
-        rng0 = splitmix32(pix_u ^ splitmix32(s_u ^ tables.seed))
-        rng0 = torch.where(rng0 == 0, torch.full_like(rng0, INITIAL_STATE),
-                           rng0)
-        rng1, o, d, tmv = camera_rays(cam, width, height, pix_u, rng0)
-
-        do_bank = grant & had_chunk
-        use0 = do_bank & slot0_free
-        use1 = do_bank & ~slot0_free
-        w = torch.where
-        ex = WqwExtra(
-            bpix0=w(use0, st.pix, ex.bpix0), br0=w(use0, st.accx, ex.br0),
-            bg0=w(use0, st.accy, ex.bg0), bb0=w(use0, st.accz, ex.bb0),
-            bpix1=w(use1, st.pix, ex.bpix1), br1=w(use1, st.accx, ex.br1),
-            bg1=w(use1, st.accy, ex.bg1), bb1=w(use1, st.accz, ex.bb1))
-        sel = lambda new, old: w(grant, new.reshape(sh), old)
-        st = st._replace(
-            ox=sel(o.x, st.ox), oy=sel(o.y, st.oy), oz=sel(o.z, st.oz),
-            dx=sel(d.x, st.dx), dy=sel(d.y, st.dy), dz=sel(d.z, st.dz),
-            tm=sel(tmv, st.tm), rng=sel(rng1, st.rng),
-            tpx=w(grant, 1.0, st.tpx), tpy=w(grant, 1.0, st.tpy),
-            tpz=w(grant, 1.0, st.tpz), radx=w(grant, 0.0, st.radx),
-            rady=w(grant, 0.0, st.rady), radz=w(grant, 0.0, st.radz),
-            alive=w(grant, 1.0, st.alive), bnc=w(grant, 0.0, st.bnc),
-            pix=w(grant, pix_new, st.pix), s=w(grant, s0, st.s),
-            send=w(grant, s0 + float(C), st.send),
-            accx=w(grant, 0.0, st.accx), accy=w(grant, 0.0, st.accy),
-            accz=w(grant, 0.0, st.accz))
-        return st, ex, counter + torch.minimum(elig_i.sum(), navail)
-
-    def nlive(st, fx):
-        # lanes with a pending fixup still owe work or radiance
-        return ((st.alive > 0.0) | (fx.kind != 0.0)).sum()
+    c = window_call(scene, cam, width, height, n_pix_loc=n_pix_loc,
+                    chunk=C, cpp=cpp, n_chunks=n_chunks, vcpp=valid_cpp,
+                    pix_base=pix_base, samp_base=samp_base, window=window,
+                    max_depth=max_depth, attenuate=attenuate, t_min=t_min,
+                    tile_rows=tile_rows, seed=seed, device=dev)
+    if _replays(dev):
+        run = window_plan(c).run
+    else:
+        def run(cy, refill):
+            cy, read = window_body(c, cy, refill)
+            return cy, read.tolist()
 
     # drain stages: narrow the grid 4x per stage as the live set decays
     n_tiles = rows // tile_rows
@@ -371,20 +615,13 @@ def wq_window_fb(scene: T.Scene, cam: Camera, width: int, height: int, *,
     caps = [t * quantum for t in stage_tiles]
     cap1 = caps[0] if caps else 0
 
-    st = _zeros_state(rows, dev)
-    ex = _zeros_extra(rows, dev)
-    fx = WB.zero_fix(rows, dev)
-    fb = torch.zeros(3 * n_pix_loc + 1, dtype=f32, device=dev)
-    counter = torch.zeros((), dtype=torch.long, device=dev)
+    cy = zero_carry(rows, n_pix_loc, dev)
     granted, live, wins = 0, 0, 0
     while granted < n_chunks or live > cap1:   # one host read per window
-        for k in range(window):
-            if granted < n_chunks:      # else every refill is a no-op
-                st, ex, counter = refill(st, ex, counter, fx)
-            st, fx = step(st, fx, k)
-        ex, fb = deposit(ex, fb, n_pix_loc, cpp, pix_base)
+        # once every chunk is granted every refill is a no-op
+        cy, (granted, live) = run(cy, granted < n_chunks)
         wins += 1
-        granted, live = torch.stack([counter, nlive(st, fx)]).tolist()
+    st, fx, fb = cy.st, cy.fx, cy.fb
     iters = wins * window
     lane_steps = float(iters * rows * LANE)
 
@@ -395,12 +632,11 @@ def wq_window_fb(scene: T.Scene, cam: Camera, width: int, height: int, *,
         st, fx = compact(st, fx, stiles * tile_rows)[:2]
         next_cap = caps[i + 1] if i + 1 < len(caps) else 0
         w2 = 0
-        live = int(nlive(st, fx))
+        live = int(_nlive(st, fx))
         while live > next_cap:
-            for k in range(window):
-                st, fx = step(st, fx, k)
+            cy, (_, live) = run(Carry(st, None, fx, None, cy.counter), False)
+            st, fx = cy.st, cy.fx
             w2 += 1
-            live = int(nlive(st, fx))
         iters += w2 * window
         lane_steps += float(w2 * window * stiles * tile_rows * LANE)
 
@@ -409,6 +645,13 @@ def wq_window_fb(scene: T.Scene, cam: Camera, width: int, height: int, *,
     segs = wrk_tot + float(st.wrk.sum(dtype=torch.float64))
     fb3 = fb[:3 * n_pix_loc].reshape(3, n_pix_loc).transpose(0, 1)
     return fb3, segs, iters, lane_steps
+
+
+wq_window_fb.captures = 0       # windows captured as CUDA graphs
+wq_window_fb.replays = 0        # windows run as a graph's replay
+wq_window_fb.eager_windows = 0  # card windows run eagerly (a kind's first
+#                                 in a call shape); hit share = replays /
+#                                 (replays + eager_windows)
 
 
 def render_wq_one_bounce(scene: T.Scene, cam: Camera, width: int,
@@ -436,7 +679,8 @@ def render_wq_one_bounce(scene: T.Scene, cam: Camera, width: int,
     sh = (rows, LANE)
 
     tables = WB.pack_scene(scene, dev)._replace(
-        cam=WB.pack_camera(cam, width, height, dev), seed=int(seed) & MASK32)
+        cam=WB.pack_camera(cam, width, height, dev),
+        seed=WB.seed_word(seed, dev))
     atlas_flat, n_atlas = _pack_atlas_flat(scene.textures.atlas.to(dev))
     w = torch.where
 

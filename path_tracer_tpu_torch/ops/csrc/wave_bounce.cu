@@ -104,7 +104,8 @@ struct WaveArgs {
   float* win;
   float* t_hit;
   int n_lanes, p_sph, p_rect, p_tri, n_med, max_depth, attenuate;
-  unsigned int seed;
+  const long long* seed;   // the base seed, 32 bits in one device word, so
+                           // that a captured launch serves every seed
   float t_min;
   const float4* fold;      // (fold_recs, 4): wave_bounce.fold_table
   int fold_recs;
@@ -877,7 +878,8 @@ __device__ __forceinline__ void lane_bounce(const WaveArgs& A, const int i,
     const float pix = IN(PIX);
     const unsigned int pix_u = (unsigned int)(long long)pix;
     const unsigned int s_u = (unsigned int)(long long)tmax(s_n, 0.f);
-    unsigned int st0 = splitmix32(pix_u ^ splitmix32(s_u ^ A.seed));
+    const unsigned int seed = (unsigned int)__ldg(A.seed);
+    unsigned int st0 = splitmix32(pix_u ^ splitmix32(s_u ^ seed));
     rng_n = st0 == 0u ? INITIAL_STATE : st0;
     const float W = ld(&C[21]), H = ld(&C[22]);
     const float pyf = floorf((pix + 0.5f) * (1.f / W));

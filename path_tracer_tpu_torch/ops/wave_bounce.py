@@ -31,6 +31,7 @@ import torch
 
 from ..core.camera import Camera
 from ..core.device import resolve_device
+from ..core.vec import Vec3
 from ..scene import types as T
 from . import bounce_core
 from .bounce_core import (FIX_ALBEDO, FIX_EMIT, FIX_NONE, LANE, M_MTYPE,
@@ -38,7 +39,8 @@ from .bounce_core import (FIX_ALBEDO, FIX_EMIT, FIX_NONE, LANE, M_MTYPE,
 
 __all__ = ["FIX_ALBEDO", "FIX_EMIT", "FIX_NONE", "LANE", "SceneTables",
            "WaveState", "WaveOut", "FixState", "pack_scene", "pack_camera",
-           "zero_fix", "wave_bounce", "wave_bounce_plain"]
+           "table_camera", "seed_word", "zero_fix", "wave_bounce",
+           "wave_bounce_plain"]
 
 DEF_TILE_ROWS = 64     # lane-count quantum on the card: rows % 64 == 0
 MAX_MED = 23           # media the shared-memory variants take (csrc: MAX_MED)
@@ -67,7 +69,7 @@ class SceneTables(NamedTuple):
     med: torch.Tensor        # (17, M) f32
     spec: torch.Tensor       # (11, MAX_SPECIAL_TEX) f32 special textures
     cam: torch.Tensor        # (23,) f32 camera + frame size (pack_camera)
-    seed: int                # base seed, 32-bit
+    seed: torch.Tensor       # () i64 base seed, 32-bit (seed_word)
     fold: torch.Tensor       # (Ps + 2 * moving, 4) f32 (fold_table)
 
 
@@ -237,7 +239,8 @@ def pack_scene(scene: T.Scene,
     return SceneTables(sph=to(sph), sph_segs=to(sph_segs), rect=to(rect),
                        rect_segs=to(rect_segs), tri=to(tri),
                        tri_segs=to(tri_segs), med=to(med), spec=to(spec),
-                       cam=torch.zeros(23, dtype=f32, device=dev), seed=0,
+                       cam=torch.zeros(23, dtype=f32, device=dev),
+                       seed=seed_word(0, dev),
                        fold=to(fold_table(sph, sph_segs)))
 
 
@@ -257,6 +260,17 @@ def pack_camera(cam: Camera, width: int, height: int,
                       + [torch.tensor(float(width)),
                          torch.tensor(float(height))])
     return out.to(resolve_device(device))
+
+
+def table_camera(cam: torch.Tensor) -> Camera:
+    """The camera `pack_camera` packed into `cam`, as 0-d views of it on
+    its device, so that a CUDA graph that reads them serves every camera.
+    `w` is not packed and is None: `Camera.get_ray` does not read it."""
+    v = cam.unbind()
+    vec = lambda i: Vec3(v[i], v[i + 1], v[i + 2])
+    return Camera(origin=vec(0), lower_left_corner=vec(3), horizontal=vec(6),
+                  vertical=vec(9), u=vec(12), v=vec(15), w=None,
+                  lens_radius=v[18], time0=v[19], time1=v[20])
 
 
 # ---------------------------------------------------------------------------
@@ -339,7 +353,7 @@ class _Args(ctypes.Structure):
                    ("n_lanes", ctypes.c_int), ("p_sph", ctypes.c_int),
                    ("p_rect", ctypes.c_int), ("p_tri", ctypes.c_int),
                    ("n_med", ctypes.c_int), ("max_depth", ctypes.c_int),
-                   ("attenuate", ctypes.c_int), ("seed", ctypes.c_uint),
+                   ("attenuate", ctypes.c_int), ("seed", _P),
                    ("t_min", ctypes.c_float), ("fold", _P),
                    ("fold_recs", ctypes.c_int), ("split", ctypes.c_int),
                    ("global_", ctypes.c_int), ("scratch", _P)])
@@ -467,10 +481,14 @@ def _launch(tables: SceneTables, st: WaveState, fix: FixState,
     a.p_sph, a.p_rect, a.p_tri = (tables.sph.shape[1], tables.rect.shape[1],
                                   tables.tri.shape[1])
     a.n_med, a.max_depth, a.attenuate = n_med, int(max_depth), int(attenuate)
-    a.seed = int(tables.seed) & 0xFFFFFFFF
+    a.seed = _check(tables.seed, torch.int64, (), dev, "seed")
     a.t_min = float(t_min)
     stream = torch.cuda.current_stream(dev)
-    events = wave_bounce.events
+    # a launch captured into a CUDA graph does not run: it is logged in
+    # `wave_bounce.captured` and counted when the graph is replayed
+    with torch.cuda.device(dev):
+        captured = torch.cuda.is_current_stream_capturing()
+    events = None if captured else wave_bounce.events
     if events is not None:
         start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         start.record(stream)
@@ -478,7 +496,11 @@ def _launch(tables: SceneTables, st: WaveState, fix: FixState,
     if err != 0:
         raise RuntimeError(f"wave_bounce: CUDA launch failed: "
                            f"{lib.wave_bounce_error_string(err).decode()}")
-    wave_bounce.launches += 1
+    if captured:
+        if wave_bounce.captured is not None:
+            wave_bounce.captured.append(a.n_lanes)
+    else:
+        wave_bounce.launches += 1
     if events is not None:
         end.record(stream)
         events.append((a.n_lanes, start, end))
@@ -540,6 +562,34 @@ def wave_bounce(tables: SceneTables, st: WaveState,
     raise ValueError(f"wave_bounce: unsupported device {dev}")
 
 
-wave_bounce.launches = 0   # kernel launches (CUDA tensors only)
+def seed_word(seed: int, device: Union[str, torch.device]) -> torch.Tensor:
+    """The 0-d int64 word on `device` that K1 reads its base seed from
+    (`SceneTables.seed`), written by a fill kernel: no copy from the host,
+    so no wait on the device.  A caller makes it once a call."""
+    return torch.full((), int(seed) & 0xFFFFFFFF, dtype=torch.int64,
+                      device=device)
+
+
+def count_replay(lanes, replay, device: torch.device) -> None:
+    """Run `replay()`, a CUDA graph's replay that holds one captured launch
+    of K1 for each entry of `lanes` (its lane count), and count them as
+    `_launch` counts its own: in `wave_bounce.launches`, and with
+    `wave_bounce.events` on, one (lanes, start, end) each, where start and
+    end are the events around the whole replay on `device`'s stream."""
+    events = wave_bounce.events
+    if events is not None:
+        stream = torch.cuda.current_stream(device)
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record(stream)
+    replay()
+    wave_bounce.launches += len(lanes)
+    if events is not None:
+        end.record(stream)
+        events.extend((n, start, end) for n in lanes)
+
+
+wave_bounce.launches = 0   # kernel launches run (CUDA tensors only)
 wave_bounce.events = None  # a list to collect (lanes, start, end), the CUDA
 #                            events around each launch; None = off
+wave_bounce.captured = None  # a list to collect the lanes of each launch
+#                              captured into a CUDA graph; None = off

@@ -86,7 +86,8 @@ def split_fold(fold, sph_segs, k, ox, oy, oz, dx, dy, dz, tm, a, tmin_a):
 
 def _rays(scene, cam, rows, seed, zero_d):
     tables = WB.pack_scene(scene, "cpu")._replace(
-        cam=WB.pack_camera(cam, W, H, "cpu"), seed=seed)
+        cam=WB.pack_camera(cam, W, H, "cpu"),
+        seed=WB.seed_word(seed, "cpu"))
     atlas, _ = _pack_atlas_flat(scene.textures.atlas)
     st, _, _, _ = probe.probe_state(tables, cam, W, H, atlas, rows=rows,
                                     bounces=2, max_depth=4, seed=seed,

@@ -59,7 +59,8 @@ def test_the_caps_are_the_boundaries():
 def test_cpu_tensors_take_the_plain_version_past_the_caps():
     scene, cam = probe.media_scene(800 / 600, 30, device="cpu")
     tables = WB.pack_scene(scene)._replace(
-        cam=WB.pack_camera(cam, 800, 600, device="cpu"), seed=3)
+        cam=WB.pack_camera(cam, 800, 600, device="cpu"),
+        seed=WB.seed_word(3, "cpu"))
     atlas, _ = _pack_atlas_flat(scene.textures.atlas)
     st, fix, texel, srv = probe.probe_state(tables, cam, 800, 600, atlas,
                                             rows=8, bounces=2, max_depth=4)

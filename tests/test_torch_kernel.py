@@ -14,7 +14,10 @@ sphere keys must go to the lowest index, and with 5 and 6 media
 (`probe.media_scene`) through its run-time media count.  Past the
 shared-memory variants' caps (24 and 30 media, and `probe.sphere_scene`'s
 13,000 static spheres, a fold table over 192 KB) the global-memory variant
-is bit-equal too.  The nearest-sphere spike (K2)
+is bit-equal too.  K1 reads its base seed through a device word: handed
+the word it gives the plain version's bits for that seed, and one launch
+captured in a CUDA graph gives a fresh launch's bits for each seed written
+into the word between replays.  The nearest-sphere spike (K2)
 is bit-equal to its plain version on the card, at the wrapper's K and
 forced to every K of `spike_pmat.SPLITS`, at 64 and 4096 rows,
 on the tie table (`make_tie_inputs`) and on degenerate rays
@@ -36,7 +39,8 @@ KW = dict(t_min=1e-3, max_depth=4, attenuate=False)
 def _case(device, rows, build=build_final_scene):
     scene, cam = build(W / H, device=device)
     tables = WB.pack_scene(scene)._replace(
-        cam=WB.pack_camera(cam, W, H, device), seed=11)
+        cam=WB.pack_camera(cam, W, H, device),
+        seed=WB.seed_word(11, device))
     atlas, _ = _pack_atlas_flat(scene.textures.atlas)
     st, fix, texel, srv = probe.probe_state(
         tables, cam, W, H, atlas, rows=rows, bounces=3, max_depth=4, seed=5,
@@ -142,6 +146,63 @@ def test_scene_past_the_caps_is_bit_equal_on_card(cuda_device, scene):
     with pytest.raises(ValueError, match="K = 1"):
         WB.wave_bounce(tables, st, fix, texel, srv, tile_rows=8, _split=4,
                        **KW)
+
+
+def _bit_equal(a, b):
+    agree = probe.agreement(a, b)
+    assert all(agree[p] == 1.0 for p in probe.INT_PLANES), agree
+    assert all(agree[p + "_max_ulp"] == 0.0
+               for p in probe.FLOAT_PLANES + probe.FIX_PLANES), agree
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [8, 16, 64])
+def test_seed_word_is_bit_equal_to_an_int_seed(cuda_device, rows):
+    """K1 reads its base seed through a device word: handed the word, it
+    gives the bits of the plain version handed the int (which the launch
+    that took the int as an argument was held bit-equal to), for two
+    seeds, and the word is read (the seeds move the regenerated lanes)."""
+    tables, st, fix, texel, srv = _case(cuda_device, rows=rows)
+    outs = []
+    for seed in (11, 12):
+        kern = WB.wave_bounce(
+            tables._replace(seed=WB.seed_word(seed, cuda_device)), st, fix,
+            texel, srv, tile_rows=8, **KW)
+        torch.cuda.synchronize()
+        _bit_equal(kern, WB.wave_bounce_plain(tables._replace(seed=seed), st,
+                                              fix, texel, srv, **KW))
+        outs.append(probe.planes(kern)["rng"])
+    assert (outs[0] != outs[1]).any()
+
+
+@pytest.mark.cuda
+def test_a_captured_launch_reads_each_seed_from_its_word(cuda_device):
+    """One launch captured in a CUDA graph serves every seed: each replay
+    after a new word gives the bits of a fresh launch with that seed, and
+    launches count when replayed, not when captured."""
+    tables, st, fix, texel, srv = _case(cuda_device, rows=16)
+    word = WB.seed_word(11, cuda_device)
+    tw = tables._replace(seed=word)
+    WB.wave_bounce(tw, st, fix, texel, srv, tile_rows=8, **KW)
+    torch.cuda.synchronize()
+    g, lanes = torch.cuda.CUDAGraph(), []
+    before = WB.wave_bounce.launches
+    WB.wave_bounce.captured = lanes
+    try:
+        with torch.cuda.graph(g):
+            out = WB.wave_bounce(tw, st, fix, texel, srv, tile_rows=8, **KW)
+    finally:
+        WB.wave_bounce.captured = None
+    assert WB.wave_bounce.launches == before and lanes == [16 * WB.LANE]
+    for seed in (11, 12, 13):
+        word.fill_(seed)
+        WB.count_replay(lanes, g.replay, cuda_device)
+        want = WB.wave_bounce(
+            tables._replace(seed=WB.seed_word(seed, cuda_device)), st, fix,
+            texel, srv, tile_rows=8, **KW)
+        torch.cuda.synchronize()
+        _bit_equal(out, want)
+    assert WB.wave_bounce.launches == before + 6
 
 
 @pytest.mark.cuda
