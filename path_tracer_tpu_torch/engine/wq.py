@@ -410,26 +410,40 @@ def _nlive(st: WB.WaveState, fx: WB.FixState) -> torch.Tensor:
     return ((st.alive > 0.0) | (fx.kind != 0.0)).sum()
 
 
+def _textured(c: WindowCall) -> bool:
+    """Whether the scene has an image texture: the atlas holds more than
+    the fallback texel."""
+    return c.n_atlas > 1
+
+
 def window_body(c: WindowCall, cy: Carry, refill: bool
                 ) -> Tuple[Carry, torch.Tensor]:
     """One window: `c.window` bounces of [refill] + texel service + K1,
     then, where the carry has banks, their deposit.  The eager driver
     (the CPU) runs it, and the card captures it (`WindowGraph`).
     Returns the carry after it and the window's host read, an int64
-    (2,) tensor [chunks granted, live lanes]."""
+    tensor [chunks granted, live lanes], and where the scene has an image
+    texture also [lane-bounces with a pending fixup, those the texel
+    service covered]."""
     st, ex, fx, fb, counter = cy
+    texels = None
     for k in range(c.window):
         if refill:
             st, ex, counter = _refill(c, st, ex, counter, fx)
         texel, srv = texel_service(fx, k, c.atlas_flat, c.n_atlas)
+        if _textured(c):
+            n = torch.count_nonzero(torch.stack([fx.kind, srv]), dim=(1, 2))
+            texels = n if texels is None else texels + n
         out = WB.wave_bounce(c.tables, st, fix=fx, texel=texel, srv=srv,
                              t_min=c.t_min, max_depth=c.max_depth,
                              attenuate=c.attenuate, tile_rows=c.tile_rows)
         st, fx = out.state, out.fix
     if ex is not None:
         ex, fb = deposit(ex, fb, c.n_pix_loc, c.cpp, c.pix_base)
-    return (Carry(st, ex, fx, fb, counter),
-            torch.stack([counter, _nlive(st, fx)]))
+    read = [counter, _nlive(st, fx)]
+    if texels is not None:
+        read += texels.unbind()
+    return Carry(st, ex, fx, fb, counter), torch.stack(read)
 
 
 GRAPH_PLANS = 4   # call shapes whose captured windows the card keeps
@@ -447,7 +461,8 @@ class WindowGraph:
     def __init__(self, c: WindowCall, static: Carry, refill: bool, pool):
         self.carry = static
         self.device = static.counter.device
-        self.read = torch.zeros(2, dtype=torch.int64, device=self.device)
+        self.read = torch.zeros(4 if _textured(c) else 2,
+                                dtype=torch.int64, device=self.device)
         self.graph = torch.cuda.CUDAGraph()
         self.lanes: list = []           # of each captured K1 launch
         WB.wave_bounce.captured = self.lanes
@@ -577,7 +592,11 @@ def wq_window_fb(scene: T.Scene, cam: Camera, width: int, height: int, *,
     On the card each kind of window runs eagerly once, is captured as a
     CUDA graph the second time (`WindowPlan`) and is replayed, in this
     call and in later calls of the same shape; `wq_window_fb.captures`,
-    `.replays` and `.eager_windows` count them (the card's windows only)."""
+    `.replays` and `.eager_windows` count them (the card's windows only).
+    Where the scene has an image texture, `wq_window_fb.texel_pending`
+    counts the lane-bounces of every window with a pending fixup and
+    `.texel_stalled` those the texel service left uncovered, which stall
+    in the kernel; both come in the window's one host read."""
     C = chunk
     cpp = spp_loc // C
     if cpp * C != spp_loc:
@@ -599,11 +618,18 @@ def wq_window_fb(scene: T.Scene, cam: Camera, width: int, height: int, *,
                     max_depth=max_depth, attenuate=attenuate, t_min=t_min,
                     tile_rows=tile_rows, seed=seed, device=dev)
     if _replays(dev):
-        run = window_plan(c).run
+        run_window = window_plan(c).run
     else:
-        def run(cy, refill):
+        def run_window(cy, refill):
             cy, read = window_body(c, cy, refill)
             return cy, read.tolist()
+
+    def run(cy, refill):
+        cy, read = run_window(cy, refill)
+        if len(read) > 2:
+            wq_window_fb.texel_pending += read[2]
+            wq_window_fb.texel_stalled += read[2] - read[3]
+        return cy, read[:2]
 
     # drain stages: narrow the grid 4x per stage as the live set decays
     n_tiles = rows // tile_rows
@@ -652,6 +678,10 @@ wq_window_fb.replays = 0        # windows run as a graph's replay
 wq_window_fb.eager_windows = 0  # card windows run eagerly (a kind's first
 #                                 in a call shape); hit share = replays /
 #                                 (replays + eager_windows)
+wq_window_fb.texel_pending = 0  # lane-bounces with a pending image-texture
+#                                 fixup, every window, on any device
+wq_window_fb.texel_stalled = 0  # of those, the ones the texel service did
+#                                 not cover (lost lane-steps)
 
 
 def render_wq_one_bounce(scene: T.Scene, cam: Camera, width: int,
