@@ -42,8 +42,10 @@ Phases, each of which raises on failure (exit code != 0):
    the bounce iterations, prints the CUDA events around each launch
    grouped by lane count, renders the frame again on the eager driver
    (`eager_driver`) and holds the replayed frame bit-equal to it, with
-   the same launches and lanes, and writes the frame to build/
-   (git-ignored);
+   the same launches and lanes, renders it once more with the refill's
+   plain version `engine.wq._refill` in the refill kernel's place and
+   holds that bit-equal too (the replayed frame's refill launches
+   printed), and writes the frame to build/ (git-ignored);
 6. the nearest-sphere spike (K2) at the reference tool's three calls,
    64, 1024 and 4096 rows of 128 rays (P = 512): at each, the plain
    version's time, the kernel forced to every K (bit-equal to the plain
@@ -559,8 +561,10 @@ def main(old_kernel=None, old_pmat=None) -> list:
         f"torch {torch.__version__} cuda {torch.version.cuda}")
     dev = torch.device("cuda")
 
+    from path_tracer_tpu_torch.engine import wq
     from path_tracer_tpu_torch.engine.wq import _pack_atlas_flat, render_wq
     from path_tracer_tpu_torch.ops import build, probe
+    from path_tracer_tpu_torch.ops import refill as RF
     from path_tracer_tpu_torch.ops import wave_bounce as WB
     from path_tracer_tpu_torch.scene.presets import build_final_scene
     from path_tracer_tpu_torch.utils.image import save_png
@@ -647,6 +651,7 @@ def main(old_kernel=None, old_pmat=None) -> list:
     torch.cuda.synchronize()
     WB.wave_bounce.launches = 0
     WB.wave_bounce.events = []
+    refills = RF.refill.launches
     t0 = time.perf_counter()
     img, segs, iters, lane_steps = render_wq(
         scene, cam, W, H, SPP, max_depth=DEPTH, return_stats=True,
@@ -654,6 +659,7 @@ def main(old_kernel=None, old_pmat=None) -> list:
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches, events = WB.wave_bounce.launches, WB.wave_bounce.events
+    refills = RF.refill.launches - refills
     WB.wave_bounce.events = None
     # a replayed window's launches share one pair of events around it
     kern_ms = sum(s.elapsed_time(e) for s, e in
@@ -710,6 +716,26 @@ def main(old_kernel=None, old_pmat=None) -> list:
         raise AssertionError("the replayed main-path frame differs from "
                              "the eager driver's")
     del e_img, e_events
+    # the refill kernel against its plain version: the frame with
+    # `_refill` in its place, through graphs of its own
+    real, plans = wq.refill_lanes, wq._plans
+    wq.refill_lanes, wq._plans = wq.refill_plain, type(plans)()
+    try:
+        t_img, t_segs, t_iters, _ = render_wq(
+            scene, cam, W, H, SPP, max_depth=DEPTH, return_stats=True,
+            device=dev)
+        torch.cuda.synchronize()
+    finally:
+        wq.refill_lanes, wq._plans = real, plans
+    same = (torch.equal(img.view(torch.int32), t_img.view(torch.int32))
+            and (segs, iters) == (t_segs, t_iters))
+    log(f"[5] refill kernel: {refills} launches in the replayed frame "
+        f"(two a refill bounce); the frame with `_refill` in its place: "
+        f"bit-equal {same}")
+    if not same or refills == 0:
+        raise AssertionError("the frame with the refill kernel differs "
+                             "from the one with `_refill`")
+    del t_img
     frame = img.cpu().numpy()
     if frame.shape != (H, W, 3) or not np.isfinite(frame).all():
         raise AssertionError("the main-path frame is not finite (H, W, 3)")

@@ -10,7 +10,9 @@ behind a long path:
    samples of one pixel, pixel-major), seeded with `core.rng`'s
    splitmix32 stream seed, and given their camera ray by
    `integrator.camera_rays`; the finished chunk's radiance is banked in
-   one of two per-lane slots;
+   one of two per-lane slots.  On the card the CUDA kernel
+   `ops.refill.refill` does it in two launches, bit-equal to `_refill`;
+   the CPU runs `_refill`;
 2. texel service: pending image-texture fixups get their atlas texel,
    S=4 per 128-lane row plus full service for a rotating set of heavy
    rows; uncovered lanes stall in the kernel;
@@ -54,6 +56,7 @@ from ..core.device import resolve_device
 from ..core.rng import INITIAL_STATE, f32, splitmix32
 from ..core.vec import fdiv, live_divisors
 from ..scene import types as T
+from ..ops import refill as RF
 from ..ops import wave_bounce as WB
 from .integrator import camera_rays
 
@@ -352,7 +355,8 @@ def _refill(c: WindowCall, st: WB.WaveState, ex: WqwExtra,
             counter: torch.Tensor, fx: WB.FixState):
     """Grant dead lanes the next chunk and launch its first camera ray
     (the kernel's in-chunk regeneration continues the same streams);
-    bank the finished chunk into a free deposit slot."""
+    bank the finished chunk into a free deposit slot.  The plain version
+    of the card's kernel `ops.refill.refill`, and the CPU's refill."""
     sh = tuple(st.pix.shape)
     f32 = torch.float32
     slot0_free = ex.bpix0 < 0.0
@@ -405,6 +409,30 @@ def _refill(c: WindowCall, st: WB.WaveState, ex: WqwExtra,
     return st, ex, counter + torch.minimum(elig_i.sum(), navail)
 
 
+def refill_plain(c: WindowCall, st: WB.WaveState, ex: WqwExtra,
+                 counter: torch.Tensor, fx: WB.FixState,
+                 noop: torch.Tensor):
+    """`_refill` and the no-op count, on any device: the CPU's refill, and
+    the yardstick the card's kernel is held to.  Returns (st, ex,
+    counter, noop), noop one more if the counter did not move."""
+    st, ex, new = _refill(c, st, ex, counter, fx)
+    return st, ex, new, noop + (new == counter)
+
+
+def refill_lanes(c: WindowCall, st: WB.WaveState, ex: WqwExtra,
+                 counter: torch.Tensor, fx: WB.FixState,
+                 noop: torch.Tensor):
+    """One refill, as `refill_plain` returns it: on a CUDA carry the
+    kernel (`ops.refill.refill`, in place), on a CPU carry
+    `refill_plain`; no fallback between them."""
+    dev = st.pix.device
+    if dev.type == "cuda":
+        return RF.refill(c, st, ex, counter, fx, noop)
+    if dev.type != "cpu":
+        raise ValueError(f"refill: unsupported device {dev}")
+    return refill_plain(c, st, ex, counter, fx, noop)
+
+
 def _nlive(st: WB.WaveState, fx: WB.FixState) -> torch.Tensor:
     # lanes with a pending fixup still owe work or radiance
     return ((st.alive > 0.0) | (fx.kind != 0.0)).sum()
@@ -416,20 +444,28 @@ def _textured(c: WindowCall) -> bool:
     return c.n_atlas > 1
 
 
+def read_size(c: WindowCall, refill: bool) -> int:
+    """The numbers of a window's host read (`window_body`)."""
+    return 2 + int(refill) + 2 * int(_textured(c))
+
+
 def window_body(c: WindowCall, cy: Carry, refill: bool
                 ) -> Tuple[Carry, torch.Tensor]:
     """One window: `c.window` bounces of [refill] + texel service + K1,
     then, where the carry has banks, their deposit.  The eager driver
     (the CPU) runs it, and the card captures it (`WindowGraph`).
     Returns the carry after it and the window's host read, an int64
-    tensor [chunks granted, live lanes], and where the scene has an image
-    texture also [lane-bounces with a pending fixup, those the texel
-    service covered]."""
+    tensor [chunks granted, live lanes], then where it refills [refills
+    that granted nothing], and where the scene has an image texture
+    [lane-bounces with a pending fixup, those the texel service
+    covered]."""
     st, ex, fx, fb, counter = cy
     texels = None
+    noop = torch.zeros((), dtype=torch.int64, device=counter.device) \
+        if refill else None
     for k in range(c.window):
         if refill:
-            st, ex, counter = _refill(c, st, ex, counter, fx)
+            st, ex, counter, noop = refill_lanes(c, st, ex, counter, fx, noop)
         texel, srv = texel_service(fx, k, c.atlas_flat, c.n_atlas)
         if _textured(c):
             n = torch.count_nonzero(torch.stack([fx.kind, srv]), dim=(1, 2))
@@ -441,6 +477,8 @@ def window_body(c: WindowCall, cy: Carry, refill: bool
     if ex is not None:
         ex, fb = deposit(ex, fb, c.n_pix_loc, c.cpp, c.pix_base)
     read = [counter, _nlive(st, fx)]
+    if refill:
+        read.append(noop)
     if texels is not None:
         read += texels.unbind()
     return Carry(st, ex, fx, fb, counter), torch.stack(read)
@@ -456,16 +494,19 @@ class WindowGraph:
     on the current device.  The graph reads the plan's call inputs and
     its own static carry, and its last nodes copy the window's final
     carry back into that static carry and the host read into `read`: a
-    replay continues where the last one ended.  Capturing runs nothing."""
+    replay continues where the last one ended.  Capturing runs nothing;
+    the K1 and refill launches it holds are counted at each replay."""
 
     def __init__(self, c: WindowCall, static: Carry, refill: bool, pool):
         self.carry = static
         self.device = static.counter.device
-        self.read = torch.zeros(4 if _textured(c) else 2,
-                                dtype=torch.int64, device=self.device)
+        self.read = torch.zeros(read_size(c, refill), dtype=torch.int64,
+                                device=self.device)
         self.graph = torch.cuda.CUDAGraph()
         self.lanes: list = []           # of each captured K1 launch
+        self.refills: list = []         # of each captured refill launch
         WB.wave_bounce.captured = self.lanes
+        RF.refill.captured = self.refills
         try:
             with torch.cuda.graph(self.graph, pool=pool):
                 out, read = window_body(c, static, refill)
@@ -473,10 +514,12 @@ class WindowGraph:
                 self.read.copy_(read)
         finally:
             WB.wave_bounce.captured = None
+            RF.refill.captured = None
         self.divisors = live_divisors()   # the graph reads them in place
 
     def replay(self) -> None:
         WB.count_replay(self.lanes, self.graph.replay, self.device)
+        RF.refill.launches += len(self.refills)
 
 
 class WindowPlan:
@@ -596,7 +639,8 @@ def wq_window_fb(scene: T.Scene, cam: Camera, width: int, height: int, *,
     Where the scene has an image texture, `wq_window_fb.texel_pending`
     counts the lane-bounces of every window with a pending fixup and
     `.texel_stalled` those the texel service left uncovered, which stall
-    in the kernel; both come in the window's one host read."""
+    in the kernel; `wq_window_fb.refill_noop` counts the refills that
+    granted no chunk.  All come in the window's one host read."""
     C = chunk
     cpp = spp_loc // C
     if cpp * C != spp_loc:
@@ -626,9 +670,12 @@ def wq_window_fb(scene: T.Scene, cam: Camera, width: int, height: int, *,
 
     def run(cy, refill):
         cy, read = run_window(cy, refill)
-        if len(read) > 2:
-            wq_window_fb.texel_pending += read[2]
-            wq_window_fb.texel_stalled += read[2] - read[3]
+        rest = read[2 + refill:]
+        if refill:
+            wq_window_fb.refill_noop += read[2]
+        if rest:
+            wq_window_fb.texel_pending += rest[0]
+            wq_window_fb.texel_stalled += rest[0] - rest[1]
         return cy, read[:2]
 
     # drain stages: narrow the grid 4x per stage as the live set decays
@@ -682,6 +729,8 @@ wq_window_fb.texel_pending = 0  # lane-bounces with a pending image-texture
 #                                 fixup, every window, on any device
 wq_window_fb.texel_stalled = 0  # of those, the ones the texel service did
 #                                 not cover (lost lane-steps)
+wq_window_fb.refill_noop = 0    # refills that granted no chunk, every
+#                                 window, on any device
 
 
 def render_wq_one_bounce(scene: T.Scene, cam: Camera, width: int,

@@ -66,7 +66,9 @@
 //     association are the other variants', so it too is bit-equal to the
 //     plain version.
 // Outputs go to separate buffers the wrapper allocates; nothing is updated
-// in place.
+// in place.  The same library holds the windowed driver's refill
+// (refill_count, refill_grant: its own section at the end), which shares
+// K1's first-ray code (camera_ray) and updates the lane state in place.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -112,6 +114,38 @@ struct WaveArgs {
   int split;               // K, threads a lane's sphere fold is split across
   int global;              // 1: the NMED_GLOBAL variant (wave_bounce.k1_variant)
   float* scratch;          // NMED_GLOBAL: (3, n_med, n_lanes) snapshot planes
+};
+
+namespace {
+
+// The refill's state planes, updated in place, in refill.ST_PLANES order;
+// its bank planes in wq.WqwExtra order.
+enum { R_OX, R_OY, R_OZ, R_DX, R_DY, R_DZ, R_TM, R_TPX, R_TPY, R_TPZ,
+       R_RADX, R_RADY, R_RADZ, R_ACCX, R_ACCY, R_ACCZ, R_ALIVE, R_S, R_BNC,
+       R_PIX, R_SEND, N_RST };
+enum { B_PIX0, B_R0, B_G0, B_B0, B_PIX1, B_R1, B_G1, B_B1, N_BANK };
+
+}  // namespace
+
+// refill arguments; mirrored by refill._Args (ctypes).  The 0-d words are
+// read on the device, so a captured refill serves every call of a shape.
+struct RefillArgs {
+  const float* cam;        // (23): pack_camera
+  const long long* seed;   // the base seed, 32 bits
+  const long long* n_chunks;
+  const long long* vcpp;   // chunks a pixel, >= 1
+  const float* pix_base;
+  const float* samp_base;
+  const long long* counter;   // chunks granted before this refill
+  const long long* noop;      // refills that granted nothing, before it
+  const float* fix_kind;
+  float* st[N_RST];
+  long long* rng;
+  float* bank[N_BANK];
+  int* counts;             // (blocks): eligible lanes a block, launch 1 -> 2
+  long long* out;          // (2): the new counter, the new noop count
+  int n_lanes;
+  int chunk;
 };
 
 namespace {
@@ -217,6 +251,71 @@ __device__ __forceinline__ unsigned int splitmix32(unsigned int x) {
   x = (x ^ (x >> 16)) * 0x21F0AAADu;
   x = (x ^ (x >> 15)) * 0x735A2D97u;
   return x ^ (x >> 15);
+}
+
+// ---- a sample's first ray (camera.hpp:93-100 + render.hpp:96-97) --------
+// As integrator.camera_rays: the stream seed splitmix32(pix ^ splitmix32(s
+// ^ seed)), never 0, then five draws (the u and v jitter, the lens disk's
+// two, the time).  C is the packed camera (wave_bounce.pack_camera).  K1's
+// in-chunk regeneration and the driver's refill both take it; each finds
+// the pixel's column and row (pxf, pyf) its own way, `XY`.  The ray goes
+// out through references into the caller's variables, which leaves K1's
+// machine code as it was with the block written inline (a returned struct
+// changed the register allocation of every K1 instantiation).
+// K1's: the row by a multiply with 1/W, as the reference's kernel finds it
+struct FloatXY {
+  __device__ __forceinline__ void operator()(float pix, float W, float& pxf,
+                                             float& pyf) const {
+    pyf = floorf((pix + 0.5f) * (1.f / W));
+    pxf = pix - pyf * W;
+  }
+};
+// the refill's: camera_rays' integer divide
+struct IntXY {
+  __device__ __forceinline__ void operator()(float pix, float W, float& pxf,
+                                             float& pyf) const {
+    const unsigned int p = (unsigned int)(long long)pix;
+    const unsigned int w = (unsigned int)W;
+    pyf = (float)(p / w);
+    pxf = (float)(p % w);
+  }
+};
+template <class XY>
+__device__ __forceinline__ void camera_ray(const float* C, const float pix,
+                                           const float s,
+                                           const long long* seed_p,
+                                           const XY xy, float& ox, float& oy,
+                                           float& oz, float& dx, float& dy,
+                                           float& dz, float& tm,
+                                           unsigned int& rng) {
+  const unsigned int pix_u = (unsigned int)(long long)pix;
+  const unsigned int s_u = (unsigned int)(long long)tmax(s, 0.f);
+  const unsigned int seed = (unsigned int)__ldg(seed_p);
+  unsigned int st0 = splitmix32(pix_u ^ splitmix32(s_u ^ seed));
+  rng = st0 == 0u ? INITIAL_STATE : st0;
+  const float W = ld(&C[21]), H = ld(&C[22]);
+  float pxf, pyf;
+  xy(pix, W, pxf, pyf);
+  const float ju = draw(rng, true);
+  const float jv = draw(rng, true);
+  const float su = (pxf + ju) / W;
+  const float sv_ = (pyf + jv) / H;
+  const float dkx = draw_range(rng, true, -1.f, 1.f);
+  const float dmaxy = sqrtf(1.f - dkx * dkx);
+  const float df = draw(rng, true);
+  const float dky = -dmaxy + (dmaxy - (-dmaxy)) * df;
+  const float rdx = dkx * ld(&C[18]);
+  const float rdy = dky * ld(&C[18]);
+  const float offx = ld(&C[12]) * rdx + ld(&C[15]) * rdy;
+  const float offy = ld(&C[13]) * rdx + ld(&C[16]) * rdy;
+  const float offz = ld(&C[14]) * rdx + ld(&C[17]) * rdy;
+  ox = ld(&C[0]) + offx;
+  oy = ld(&C[1]) + offy;
+  oz = ld(&C[2]) + offz;
+  dx = ld(&C[3]) + ld(&C[6]) * su + ld(&C[9]) * sv_ - ld(&C[0]) - offx;
+  dy = ld(&C[4]) + ld(&C[7]) * su + ld(&C[10]) * sv_ - ld(&C[1]) - offy;
+  dz = ld(&C[5]) + ld(&C[8]) * su + ld(&C[11]) * sv_ - ld(&C[2]) - offz;
+  tm = draw_range(rng, true, ld(&C[19]), ld(&C[20]));
 }
 
 // ---- degree-17 odd minimax atan on [-1, 1], as written in the reference -
@@ -873,38 +972,9 @@ __device__ __forceinline__ void lane_bounce(const WaveArgs& A, const int i,
         ndz = cont ? adv.ndz : dz;
   float ntm = tm;
   unsigned int rng_n = adv.rng;
-  if (regen) {  // camera.hpp:93-100 + render.hpp:96-97, as camera_rays
-    const float* C = A.cam;
-    const float pix = IN(PIX);
-    const unsigned int pix_u = (unsigned int)(long long)pix;
-    const unsigned int s_u = (unsigned int)(long long)tmax(s_n, 0.f);
-    const unsigned int seed = (unsigned int)__ldg(A.seed);
-    unsigned int st0 = splitmix32(pix_u ^ splitmix32(s_u ^ seed));
-    rng_n = st0 == 0u ? INITIAL_STATE : st0;
-    const float W = ld(&C[21]), H = ld(&C[22]);
-    const float pyf = floorf((pix + 0.5f) * (1.f / W));
-    const float pxf = pix - pyf * W;
-    const float ju = draw(rng_n, true);
-    const float jv = draw(rng_n, true);
-    const float su = (pxf + ju) / W;
-    const float sv_ = (pyf + jv) / H;
-    const float dkx = draw_range(rng_n, true, -1.f, 1.f);
-    const float dmaxy = sqrtf(1.f - dkx * dkx);
-    const float df = draw(rng_n, true);
-    const float dky = -dmaxy + (dmaxy - (-dmaxy)) * df;
-    const float rdx = dkx * ld(&C[18]);
-    const float rdy = dky * ld(&C[18]);
-    const float offx = ld(&C[12]) * rdx + ld(&C[15]) * rdy;
-    const float offy = ld(&C[13]) * rdx + ld(&C[16]) * rdy;
-    const float offz = ld(&C[14]) * rdx + ld(&C[17]) * rdy;
-    nox = ld(&C[0]) + offx;
-    noy = ld(&C[1]) + offy;
-    noz = ld(&C[2]) + offz;
-    ndx = ld(&C[3]) + ld(&C[6]) * su + ld(&C[9]) * sv_ - ld(&C[0]) - offx;
-    ndy = ld(&C[4]) + ld(&C[7]) * su + ld(&C[10]) * sv_ - ld(&C[1]) - offy;
-    ndz = ld(&C[5]) + ld(&C[8]) * su + ld(&C[11]) * sv_ - ld(&C[2]) - offz;
-    ntm = draw_range(rng_n, true, ld(&C[19]), ld(&C[20]));
-  }
+  if (regen)
+    camera_ray(A.cam, IN(PIX), s_n, A.seed, FloatXY(), nox, noy, noz, ndx,
+               ndy, ndz, ntm, rng_n);
 #define OUT(p) A.f_out[p][i]
   OUT(OX) = nox;
   OUT(OY) = noy;
@@ -1198,6 +1268,141 @@ cudaError_t run_any(const WaveArgs& a, cudaStream_t stream, int* per_sm) {
   }
 }
 
+// ---- the windowed driver's refill (engine/wq.py:_refill) -----------------
+// Replaces no TPU kernel: the JAX package's refill is jnp code that XLA
+// fuses on the TPU, where the port's ATen version launched ~195 kernels a
+// refill on the card.  It grants each eligible lane (dead, no pending EMIT
+// fixup, a free bank slot or no chunk yet) the chunk counter + its
+// exclusive rank among the eligible lanes in flat lane order, while the
+// rank is under n_chunks - counter; banks the lane's finished chunk into
+// slot 0, else slot 1; and gives it the chunk's first ray (camera_ray).
+// What bounds it: bytes.  Eligibility reads five planes of every lane
+// (7.7 MB at an 800x480 frame's 385,024 lanes, 2.3 us at 3.35 TB/s); the
+// ~30 planes are updated in place on the granted lanes only.  So two
+// launches, no atomics, the same grants on every run:
+//   1. refill_count: each block counts the eligible lanes of its tile;
+//   2. refill_grant: each block sums the counts before it, ranks its own
+//      lanes (ballots in lane order) and grants; the last block writes
+//      the new counter and the no-op count to a word of their own.
+// Both end at once when the queue is empty (n_chunks <= counter), so a
+// refill that cannot grant costs two near-empty launches.
+constexpr int R_BLOCK = 256;                 // threads a block
+constexpr int R_WARPS = R_BLOCK / 32;
+constexpr int R_PER = 4;                     // lanes a thread
+constexpr int R_TILE = R_BLOCK * R_PER;      // lanes a block (refill.TILE)
+constexpr unsigned FULL = 0xffffffffu;
+
+// dead, no pending EMIT fixup (K1 adds its emission to acc once the texel
+// service covers it), and a free bank slot or no chunk yet
+__device__ __forceinline__ bool refill_elig(const RefillArgs& A, int i) {
+  return A.st[R_ALIVE][i] <= 0.f && A.fix_kind[i] != 2.f &&
+         (A.bank[B_PIX0][i] < 0.f || A.bank[B_PIX1][i] < 0.f ||
+          !(A.st[R_PIX][i] >= 0.f));
+}
+
+// Lane i takes chunk cid: bank its finished chunk, start the new one.
+__device__ __forceinline__ void refill_lane(const RefillArgs& A, int i,
+                                            long long cid) {
+  const long long vc = *A.vcpp;
+  const float pix_new = *A.pix_base + (float)(cid / vc);
+  const float s0 = *A.samp_base + (float)((cid % vc) * A.chunk);
+  const float pix = A.st[R_PIX][i];
+  if (pix >= 0.f) {  // slot 0 if free, else slot 1 (eligibility left one)
+    const int b = A.bank[B_PIX0][i] < 0.f ? B_PIX0 : B_PIX1;
+    A.bank[b][i] = pix;
+    A.bank[b + 1][i] = A.st[R_ACCX][i];
+    A.bank[b + 2][i] = A.st[R_ACCY][i];
+    A.bank[b + 3][i] = A.st[R_ACCZ][i];
+  }
+  float* const* P = A.st;
+  unsigned int rng;
+  camera_ray(A.cam, pix_new, s0, A.seed, IntXY(), P[R_OX][i], P[R_OY][i],
+             P[R_OZ][i], P[R_DX][i], P[R_DY][i], P[R_DZ][i], P[R_TM][i], rng);
+  A.rng[i] = (long long)rng;
+  P[R_TPX][i] = 1.f;
+  P[R_TPY][i] = 1.f;
+  P[R_TPZ][i] = 1.f;
+  P[R_RADX][i] = 0.f;
+  P[R_RADY][i] = 0.f;
+  P[R_RADZ][i] = 0.f;
+  P[R_ACCX][i] = 0.f;
+  P[R_ACCY][i] = 0.f;
+  P[R_ACCZ][i] = 0.f;
+  P[R_ALIVE][i] = 1.f;
+  P[R_S][i] = s0;
+  P[R_BNC][i] = 0.f;
+  P[R_PIX][i] = pix_new;
+  P[R_SEND][i] = s0 + (float)A.chunk;
+}
+
+// Block b's lanes are b * R_TILE + j * R_BLOCK + thread, j < R_PER: in
+// flat lane order, round j of every warp, then round j + 1.
+__global__ void __launch_bounds__(R_BLOCK) refill_count(const RefillArgs A) {
+  if (*A.n_chunks - *A.counter <= 0) return;
+  const int base = blockIdx.x * R_TILE + threadIdx.x;
+  int n = 0;
+#pragma unroll
+  for (int j = 0; j < R_PER; ++j) {
+    const int i = base + j * R_BLOCK;
+    n += __syncthreads_count(i < A.n_lanes && refill_elig(A, i));
+  }
+  if (threadIdx.x == 0) A.counts[blockIdx.x] = n;
+}
+
+__global__ void __launch_bounds__(R_BLOCK) refill_grant(const RefillArgs A) {
+  __shared__ int part[R_WARPS];              // the earlier blocks' counts
+  __shared__ int warp_n[R_PER * R_WARPS];    // eligible lanes (round, warp)
+  const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
+  const bool last = blockIdx.x == gridDim.x - 1;
+  const long long counter = *A.counter;
+  const long long navail = *A.n_chunks - counter;
+  if (navail <= 0) {  // nothing to grant; torch.minimum(#eligible, navail)
+    if (last && t == 0) {
+      A.out[0] = counter + navail;
+      A.out[1] = *A.noop + (navail == 0 ? 1 : 0);
+    }
+    return;
+  }
+  int p = 0;
+  for (int b = t; b < (int)blockIdx.x; b += R_BLOCK) p += A.counts[b];
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) p += __shfl_xor_sync(FULL, p, o);
+  if (lane == 0) part[warp] = p;
+  const int base = blockIdx.x * R_TILE + t;
+  bool e[R_PER];
+  unsigned m[R_PER];
+#pragma unroll
+  for (int j = 0; j < R_PER; ++j) {
+    const int i = base + j * R_BLOCK;
+    e[j] = i < A.n_lanes && refill_elig(A, i);
+    m[j] = __ballot_sync(FULL, e[j]);
+    if (lane == 0) warp_n[j * R_WARPS + warp] = __popc(m[j]);
+  }
+  __syncthreads();
+  long long before = 0;  // eligible lanes ahead of round j in lane order
+#pragma unroll
+  for (int w = 0; w < R_WARPS; ++w) before += part[w];
+  const unsigned lt = (1u << lane) - 1u;
+#pragma unroll
+  for (int j = 0; j < R_PER; ++j) {
+    long long rank = before + __popc(m[j] & lt);
+    int round_n = 0;
+    for (int w = 0; w < R_WARPS; ++w) {
+      const int n = warp_n[j * R_WARPS + w];
+      if (w < warp) rank += n;
+      round_n += n;
+    }
+    if (e[j] && rank < navail)
+      refill_lane(A, base + j * R_BLOCK, counter + rank);
+    before += round_n;
+  }
+  if (last && t == 0) {
+    const long long g = before < navail ? before : navail;
+    A.out[0] = counter + g;
+    A.out[1] = *A.noop + (g == 0 ? 1 : 0);
+  }
+}
+
 }  // namespace
 
 // Launch one bounce on `stream`; returns cudaGetLastError() after the
@@ -1216,4 +1421,17 @@ extern "C" int wave_bounce_occupancy(const WaveArgs* a, int* blocks) {
 
 extern "C" const char* wave_bounce_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+// The windowed driver's refill on `stream`: refill_count, then
+// refill_grant, over ceil(n_lanes / R_TILE) blocks (at least one, which
+// writes `out`).  Returns cudaGetLastError() after each launch.
+extern "C" int refill_launch(const RefillArgs* a, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int blocks = a->n_lanes > 0 ? (a->n_lanes + R_TILE - 1) / R_TILE : 1;
+  refill_count<<<blocks, R_BLOCK, 0, s>>>(*a);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  refill_grant<<<blocks, R_BLOCK, 0, s>>>(*a);
+  return (int)cudaGetLastError();
 }

@@ -130,11 +130,14 @@ class Ops(TorchDispatchMode):
 
 
 def _body_before_counters(c, cy, refill):
-    """`window_body` as it was before the counters."""
+    """`window_body` as it was before the texel counters (with the refill's
+    no-op count, which every refill window reads)."""
     st, ex, fx, fb, counter = cy
+    noop = torch.zeros((), dtype=torch.int64) if refill else None
     for k in range(c.window):
         if refill:
-            st, ex, counter = wq._refill(c, st, ex, counter, fx)
+            st, ex, counter, noop = wq.refill_lanes(c, st, ex, counter, fx,
+                                                    noop)
         texel, srv = wq.texel_service(fx, k, c.atlas_flat, c.n_atlas)
         out = WB.wave_bounce(c.tables, st, fix=fx, texel=texel, srv=srv,
                              t_min=c.t_min, max_depth=c.max_depth,
@@ -143,7 +146,8 @@ def _body_before_counters(c, cy, refill):
     if ex is not None:
         ex, fb = wq.deposit(ex, fb, c.n_pix_loc, c.cpp, c.pix_base)
     return (wq.Carry(st, ex, fx, fb, counter),
-            torch.stack([counter, wq._nlive(st, fx)]))
+            torch.stack([counter, wq._nlive(st, fx)]
+                        + ([noop] if refill else [])))
 
 
 def _call(scenes, name, w=32, h=24):
@@ -169,7 +173,7 @@ def test_a_window_without_image_textures_adds_no_op(scenes, refill):
         runs.append((ops.names, read.tolist(),
                      [t.numpy().tobytes() for t in wq._leaves(out)]))
     assert runs[0] == runs[1]
-    assert len(runs[0][1]) == 2
+    assert len(runs[0][1]) == 2 + refill
 
 
 def test_a_textured_window_reads_four_numbers(scenes):
@@ -178,10 +182,11 @@ def test_a_textured_window_reads_four_numbers(scenes):
     cy = wq.zero_carry(8, 32 * 24, CPU)
     out, read = wq.window_body(c, cy, True)
     want, want_read = _body_before_counters(c, cy, True)
-    assert read.shape == (4,) and read[:2].tolist() == want_read.tolist()
+    # [granted, live, no-op refills, pending, served]
+    assert read.shape == (5,) and read[:3].tolist() == want_read.tolist()
     assert [t.numpy().tobytes() for t in wq._leaves(out)] == \
         [t.numpy().tobytes() for t in wq._leaves(want)]
-    pending, served = read[2:].tolist()
+    pending, served = read[3:].tolist()
     assert 0 <= served <= pending
 
 
@@ -204,7 +209,8 @@ def test_one_host_read_a_window(scenes, zeroed, stand_in, monkeypatch, plan):
         reads.clear()
         out = _render(scenes, "textured")
         assert len(reads) == out[2] // 3
-        assert set(reads) == {torch.Size([4])}
+        # refill windows read the no-op count too
+        assert set(reads) == {torch.Size([5]), torch.Size([4])}
 
 
 # ---------------------------------------------------------------------------
@@ -242,8 +248,8 @@ def test_replayed_window_counts_what_its_eager_body_counts(card,
     g.replay()
     want, read = wq.window_body(plan.call, wq._clone(cy), True)
     torch.cuda.synchronize()
-    assert g.read.tolist() == read.tolist() and read.shape == (4,)
-    assert read[2] > 0
+    assert g.read.tolist() == read.tolist() and read.shape == (5,)
+    assert read[3] > 0
     # render_wq through graphs against the eager windowed driver
     render = lambda: wq.render_wq(scene, cam, w, h, 2, seed=4,
                                   return_stats=True, device=dev)

@@ -160,8 +160,7 @@ class EagerGraph:
 
     def __init__(self, c, static, refill, pool):
         self.c, self.carry, self.refill = c, static, refill
-        self.read = torch.zeros(4 if wq._textured(c) else 2,
-                                dtype=torch.int64)
+        self.read = torch.zeros(wq.read_size(c, refill), dtype=torch.int64)
 
     def replay(self):
         out, read = wq.window_body(self.c, self.carry, self.refill)
