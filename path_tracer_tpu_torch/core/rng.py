@@ -11,7 +11,7 @@ inside that range (splitmix32's products stay below 2**63).
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -134,10 +134,15 @@ def splitmix32(x: torch.Tensor) -> torch.Tensor:
 
 
 def seed_perf(pixel_ids: torch.Tensor, sample_ids: torch.Tensor,
-              base_seed: int = 0) -> torch.Tensor:
-    """Counter-based stream seed per (pixel, sample); never 0 (the
-    xorshift fixed point)."""
+              base_seed: Union[int, torch.Tensor] = 0) -> torch.Tensor:
+    """Counter-based stream seed per (pixel, sample),
+    splitmix32(pix ^ splitmix32(sample ^ seed)); never 0 (the xorshift
+    fixed point).  The one stream seed of the package: the work queue's
+    grants, K1's in-chunk regeneration and both gradient routes.
+    `base_seed` is an int or an int64 tensor such as the 0-d device word
+    K1 reads (`SceneTables.seed`), which is not read back to the host, so
+    a CUDA graph can capture the call."""
     h = splitmix32((pixel_ids & MASK32)
                    ^ splitmix32((sample_ids & MASK32)
-                                ^ (int(base_seed) & MASK32)))
+                                ^ (base_seed & MASK32)))
     return torch.where(h == 0, torch.full_like(h, INITIAL_STATE), h)

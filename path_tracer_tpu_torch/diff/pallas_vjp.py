@@ -51,7 +51,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..core.camera import Camera
 from ..core.device import resolve_device
-from ..core.rng import INITIAL_STATE, MASK32, f32, splitmix32
+from ..core.rng import f32, seed_perf
 from ..core.vec import frsqrt, fsin, fsqrt
 from ..engine import wq as WQ
 from ..engine.integrator import camera_rays
@@ -96,13 +96,6 @@ def _padded_ids(pix: torch.Tensor, samp: torch.Tensor, lanes: int, dev):
     return out
 
 
-def _stream_seed(pix_f: torch.Tensor, samp_f: torch.Tensor, seed: int):
-    """The lanes' stream seeds splitmix(pix ^ splitmix(samp ^ seed)),
-    never 0: the work queue's and the kernel's regeneration's."""
-    rng0 = splitmix32(pix_f ^ splitmix32(samp_f ^ seed))
-    return torch.where(rng0 == 0, torch.full_like(rng0, INITIAL_STATE), rng0)
-
-
 def record_forward(scene: T.Scene, cam: Camera, width: int, height: int,
                    pix: torch.Tensor, samp: torch.Tensor, *, max_depth: int,
                    attenuate: bool, t_min: float, seed: int, tile_rows: int,
@@ -117,15 +110,12 @@ def record_forward(scene: T.Scene, cam: Camera, width: int, height: int,
     lanes = _round_up(L, tile_rows * LANE)
     rows = lanes // LANE
     sh = (rows, LANE)
-    seed = int(seed) & MASK32
-    tables = WB.pack_scene(scene, dev)._replace(
-        cam=WB.pack_camera(cam, width, height, dev),
-        seed=WB.seed_word(seed, dev))
-    atlas_flat, n_atlas = WQ._pack_atlas_flat(scene.textures.atlas.to(dev))
+    tables, atlas_flat, n_atlas = WQ.k1_inputs(scene, cam, width, height,
+                                               seed, dev)
 
     pix_f, samp_f = _padded_ids(pix, samp, lanes, dev)
     rng1, o, d, tmv = camera_rays(cam, width, height, pix_f,
-                                  _stream_seed(pix_f, samp_f, seed))
+                                  seed_perf(pix_f, samp_f, seed))
     z = torch.zeros(sh, dtype=F32, device=dev)
     one = torch.ones(sh, dtype=F32, device=dev)
     samp_p = samp_f.to(F32).reshape(sh)
@@ -445,11 +435,10 @@ def replay_radiance(scene: T.Scene, cam: Camera, res: Residuals,
     dev = res.dx.device
     L = pix.shape[0]
     lanes = res.dx.shape[1] * LANE
-    seed = int(seed) & MASK32
     cam = _cam_to(cam, dev)
     pix_f, samp_f = _padded_ids(pix, samp, lanes, dev)
     _, o0, d0, tm = camera_rays(cam, width, height, pix_f,
-                                _stream_seed(pix_f, samp_f, seed))
+                                seed_perf(pix_f, samp_f, seed))
     tmv = tm.detach()      # camera time; its differentiable part is at k=0
     tb = _class_tables(scene, dev)
     maps = _scan_maps(scene)

@@ -50,7 +50,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..core.camera import Camera
 from ..core.device import resolve_device
-from ..core.rng import INITIAL_STATE, MASK32, f32, splitmix32
+from ..core.rng import f32, seed_perf
 from ..core.vec import Vec3, frsqrt, fsin, fsqrt
 from ..engine import wq as WQ
 from ..engine.integrator import camera_rays
@@ -143,72 +143,35 @@ def record_forward_q(scene: T.Scene, cam: Camera, width: int, height: int,
     pix_base_f = float(pix_base)
     samp_base_f = float(samp_base)
 
-    tables = WB.pack_scene(scene, dev)._replace(
-        cam=WB.pack_camera(cam, width, height, dev),
-        seed=WB.seed_word(seed, dev))
-    atlas_flat, n_atlas = WQ._pack_atlas_flat(scene.textures.atlas.to(dev))
+    tables, atlas_flat, n_atlas = WQ.k1_inputs(scene, cam, width, height,
+                                               seed, dev)
     w = torch.where
 
     def refill(st: WB.WaveState, ex: WQ.WqwExtra, counter, fx, lo=None):
-        """The work-queue refill: grant dead lanes the next pixel-major
-        chunk and bank the finished chunk into a free deposit slot.  `lo`
-        is stage B's leftover-singles queue (lo_pix, lo_s, n_lo): chunk
-        ids past the main queue map into it."""
-        sh = st.ox.shape
-        slot0_free = ex.bpix0 < 0.0
-        slot1_free = ex.bpix1 < 0.0
-        had_chunk = st.pix >= 0.0
-        dead = (st.alive <= 0.0) & (fx.kind != WB.FIX_EMIT)
-        elig = dead & (slot0_free | slot1_free | ~had_chunk)
-        elig_i = elig.reshape(-1).long()
-        rank = torch.cumsum(elig_i, 0) - elig_i
+        """The work queue's refill (`engine.wq`'s grant, bank and path
+        start) over this recorder's chunk map: head chunks pixel-major,
+        then the tail's single samples, then, past the main queue, stage
+        B's leftover-singles queue `lo` (lo_pix, lo_s, n_lo)."""
         n_total = n_chunks if lo is None else n_chunks + lo[2]
-        navail = n_total - counter
-        grant = (elig.reshape(-1) & (rank < navail)).reshape(sh)
-        cid = counter + rank.reshape(sh)
+        granted, cid, counter = WQ.grant(WQ.eligible(st, ex, fx), counter,
+                                         n_total)
         in_tail = cid >= head_chunks
         j = torch.clamp(cid - head_chunks, min=0)
         fl = lambda a, b: torch.div(a, b, rounding_mode="floor")
         pix_new = pix_base_f + w(in_tail, head_pix + fl(j, spp),
                                  fl(cid, cpp)).to(F32)
         s0 = samp_base_f + w(in_tail, j % spp, (cid % cpp) * C).to(F32)
-        clen = w(in_tail, 1.0, float(C))
+        clen = w(in_tail, 1.0, float(C))      # lo's ids are in the tail too
         if lo is not None:
             lo_pix, lo_s, _ = lo
             in_lo = cid >= n_chunks
             li = torch.clamp(cid - n_chunks, 0, lo_pix.shape[0] - 1)
             pix_new = w(in_lo, lo_pix[li], pix_new)
             s0 = w(in_lo, lo_s[li], s0)
-            clen = w(in_lo, 1.0, clen)
-
-        pix_u = pix_new.reshape(-1).long()
-        s_u = s0.reshape(-1).long()
-        rng0 = splitmix32(pix_u ^ splitmix32(s_u ^ tables.seed))
-        rng0 = w(rng0 == 0, torch.full_like(rng0, INITIAL_STATE), rng0)
-        rng1, o, d, tmv = camera_rays(cam, width, height, pix_u, rng0)
-
-        do_bank = grant & had_chunk
-        use0 = do_bank & slot0_free
-        use1 = do_bank & ~slot0_free
-        ex = WQ.WqwExtra(
-            bpix0=w(use0, st.pix, ex.bpix0), br0=w(use0, st.accx, ex.br0),
-            bg0=w(use0, st.accy, ex.bg0), bb0=w(use0, st.accz, ex.bb0),
-            bpix1=w(use1, st.pix, ex.bpix1), br1=w(use1, st.accx, ex.br1),
-            bg1=w(use1, st.accy, ex.bg1), bb1=w(use1, st.accz, ex.bb1))
-        sel = lambda new, old: w(grant, new.reshape(sh), old)
-        st = st._replace(
-            ox=sel(o.x, st.ox), oy=sel(o.y, st.oy), oz=sel(o.z, st.oz),
-            dx=sel(d.x, st.dx), dy=sel(d.y, st.dy), dz=sel(d.z, st.dz),
-            tm=sel(tmv, st.tm), rng=sel(rng1, st.rng),
-            tpx=w(grant, 1.0, st.tpx), tpy=w(grant, 1.0, st.tpy),
-            tpz=w(grant, 1.0, st.tpz), radx=w(grant, 0.0, st.radx),
-            rady=w(grant, 0.0, st.rady), radz=w(grant, 0.0, st.radz),
-            alive=w(grant, 1.0, st.alive), bnc=w(grant, 0.0, st.bnc),
-            pix=w(grant, pix_new, st.pix), s=w(grant, s0, st.s),
-            send=w(grant, s0 + clen, st.send),
-            accx=w(grant, 0.0, st.accx), accy=w(grant, 0.0, st.accy),
-            accz=w(grant, 0.0, st.accz))
-        return st, ex, counter + torch.minimum(elig_i.sum(), navail)
+        ex = WQ.bank(st, ex, granted)
+        st = WQ.start_paths(st, granted, pix_new, s0, s0 + clen, cam, width,
+                            height, tables.seed)
+        return st, ex, counter
 
     # a pixel takes at most one deposit a chunk, so at most spp
     deposit = lambda ex, fb: WQ.deposit(ex, fb, npx, spp, pix_base_f)
@@ -493,9 +456,7 @@ def _replay_step(tab, tri_tab, med_tab, cam: Camera, width: int,
 
     # ---- fresh path start: differentiable camera ray ---------------------
     pix_u = torch.clamp(pix, min=0.0).long()
-    s_u = torch.clamp(s, min=0.0).long()
-    rng0 = splitmix32(pix_u ^ splitmix32(s_u ^ seed))
-    rng0 = w(rng0 == 0, torch.full_like(rng0, INITIAL_STATE), rng0)
+    rng0 = seed_perf(pix_u, torch.clamp(s, min=0.0).long(), seed)
     _, o0, d0, tm0 = camera_rays(cam, width, height, pix_u, rng0)
     frs = fresh > 0.0
     ox, oy, oz, dx, dy, dz, tm = (w(frs, n, o) for n, o in (
@@ -750,7 +711,6 @@ def replay_fb(scene: T.Scene, cam: Camera, rec: RecQ, pix_base: int, *,
     tab, tri_tab, med_tab = pad(tab), pad(tri_tab), pad(med_tab)
     tri_row, med_row = _scan_map(tri_ids.to(dev)), _scan_map(med_ids.to(dev))
     cam = _cam_to(cam, dev)
-    seed = int(seed) & MASK32
     pix_base_f = float(pix_base)
     drop = 3 * npx
     n_c = len(CARRY)

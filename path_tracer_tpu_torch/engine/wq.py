@@ -7,12 +7,11 @@ Lanes that finish are refilled from a global chunk queue, so no lane idles
 behind a long path:
 
 1. refill: dead lanes are granted the next chunk (`chunk` consecutive
-   samples of one pixel, pixel-major), seeded with `core.rng`'s
-   splitmix32 stream seed, and given their camera ray by
-   `integrator.camera_rays`; the finished chunk's radiance is banked in
-   one of two per-lane slots.  On the card the CUDA kernel
-   `ops.refill.refill` does it in two launches, bit-equal to `_refill`;
-   the CPU runs `_refill`;
+   samples of one pixel, pixel-major), seeded with `core.rng.seed_perf`,
+   and given their camera ray by `integrator.camera_rays`; the finished
+   chunk's radiance is banked in one of two per-lane slots.  On the card
+   the CUDA kernel `ops.refill.refill` does it in two launches, bit-equal
+   to `refill_plain`; the CPU runs `refill_plain`;
 2. texel service: pending image-texture fixups get their atlas texel,
    S=4 per 128-lane row plus full service for a rotating set of heavy
    rows; uncovered lanes stall in the kernel;
@@ -38,6 +37,12 @@ camera, the seed, the queue's length, the pixel and sample bases), so
 only what a window takes as a Python value (sizes, the depth) keys a
 capture: a moving camera or a new seed replays the same graphs.
 
+The work queue's steps are written once, here, for every driver:
+`k1_inputs` packs K1's inputs, and a refill is `grant`, `bank` and
+`start_paths`, the caller supplying only its chunk map (which pixel and
+samples an id names): `refill_plain`, `render_wq_one_bounce` and the
+gradient route's recorder `diff.queued_vjp.record_forward_q`.
+
 Deposits add in a fixed order: every contribution to one framebuffer
 entry is added sequentially in the order the reference's scatter-adds
 take them (bank slot 0's lanes, then slot 1's, each in lane order), via a
@@ -53,7 +58,7 @@ import torch
 
 from ..core.camera import Camera
 from ..core.device import resolve_device
-from ..core.rng import INITIAL_STATE, f32, splitmix32
+from ..core.rng import f32, seed_perf
 from ..core.vec import fdiv, live_divisors
 from ..scene import types as T
 from ..ops import refill as RF
@@ -88,6 +93,18 @@ def _pack_atlas_flat(atlas: torch.Tensor) -> Tuple[torch.Tensor, int]:
     a = atlas.to(torch.int32)
     flat = a[:, 0] | (a[:, 1] << 8) | (a[:, 2] << 16)
     return flat, flat.shape[0]
+
+
+def k1_inputs(scene: T.Scene, cam: Camera, width: int, height: int,
+              seed: int, device: torch.device
+              ) -> Tuple[WB.SceneTables, torch.Tensor, int]:
+    """K1's inputs for one render on `device`: the scene's tables with the
+    camera, the frame size and the seed word in place, then the atlas
+    packed flat and its texel count: (tables, atlas_flat, n_atlas)."""
+    tables = WB.pack_scene(scene, device)._replace(
+        cam=WB.pack_camera(cam, width, height, device),
+        seed=WB.seed_word(seed, device))
+    return (tables, *_pack_atlas_flat(scene.textures.atlas.to(device)))
 
 
 def texel_service(fx: WB.FixState, k: int, atlas_flat: torch.Tensor,
@@ -351,71 +368,88 @@ def _copy_into(dst, src) -> None:
         d.copy_(s)
 
 
-def _refill(c: WindowCall, st: WB.WaveState, ex: WqwExtra,
-            counter: torch.Tensor, fx: WB.FixState):
-    """Grant dead lanes the next chunk and launch its first camera ray
-    (the kernel's in-chunk regeneration continues the same streams);
-    bank the finished chunk into a free deposit slot.  The plain version
-    of the card's kernel `ops.refill.refill`, and the CPU's refill."""
-    sh = tuple(st.pix.shape)
-    f32 = torch.float32
-    slot0_free = ex.bpix0 < 0.0
-    slot1_free = ex.bpix1 < 0.0
-    had_chunk = st.pix >= 0.0
-    # a dead lane with a pending EMIT fixup keeps its acc until the
-    # texel service covers it (the kernel adds the emission then)
+def eligible(st: WB.WaveState, ex: WqwExtra, fx: WB.FixState
+             ) -> torch.Tensor:
+    """The lanes a chunk refill may grant: dead, with no pending EMIT
+    fixup (the texel service adds its emission to acc first), and with a
+    free bank slot for the chunk they hold, if they hold one."""
     dead = (st.alive <= 0.0) & (fx.kind != WB.FIX_EMIT)
-    elig = dead & (slot0_free | slot1_free | ~had_chunk)
+    return dead & ((ex.bpix0 < 0.0) | (ex.bpix1 < 0.0) | ~(st.pix >= 0.0))
+
+
+def grant(elig: torch.Tensor, counter: torch.Tensor, n_total):
+    """The queue's grant: the eligible lanes, in lane order, take the ids
+    counter, counter + 1, ... while ids below `n_total` are left.
+    Returns (granted lanes, each lane's id (granted or not), the new
+    counter)."""
     elig_i = elig.reshape(-1).long()
     rank = torch.cumsum(elig_i, 0) - elig_i          # exclusive prefix
-    navail = c.n_chunks - counter
-    grant = (elig.reshape(-1) & (rank < navail)).reshape(sh)
-    cid = counter + rank.reshape(sh)
-    pix_new = c.pix_base + torch.div(
-        cid, c.vcpp, rounding_mode="floor").to(f32)
-    s0 = c.samp_base + ((cid % c.vcpp) * c.chunk).to(f32)
+    navail = n_total - counter
+    granted = (elig.reshape(-1) & (rank < navail)).reshape(elig.shape)
+    return (granted, counter + rank.reshape(elig.shape),
+            counter + torch.minimum(elig_i.sum(), navail))
 
-    # the stream seed and camera ray of (pix_new, s0), for every lane
-    pix_u = pix_new.reshape(-1).long()
-    s_u = s0.reshape(-1).long()
-    rng0 = splitmix32(pix_u ^ splitmix32(s_u ^ c.tables.seed))
-    rng0 = torch.where(rng0 == 0, torch.full_like(rng0, INITIAL_STATE),
-                       rng0)
-    rng1, o, d, tmv = camera_rays(WB.table_camera(c.tables.cam), c.width,
-                                  c.height, pix_u, rng0)
 
-    do_bank = grant & had_chunk
+def bank(st: WB.WaveState, ex: WqwExtra, granted: torch.Tensor) -> WqwExtra:
+    """The chunk each granted lane finished, banked into its free slot
+    (slot 0 first)."""
+    do_bank = granted & (st.pix >= 0.0)
+    slot0_free = ex.bpix0 < 0.0
     use0 = do_bank & slot0_free
     use1 = do_bank & ~slot0_free
     w = torch.where
-    ex = WqwExtra(
+    return WqwExtra(
         bpix0=w(use0, st.pix, ex.bpix0), br0=w(use0, st.accx, ex.br0),
         bg0=w(use0, st.accy, ex.bg0), bb0=w(use0, st.accz, ex.bb0),
         bpix1=w(use1, st.pix, ex.bpix1), br1=w(use1, st.accx, ex.br1),
         bg1=w(use1, st.accy, ex.bg1), bb1=w(use1, st.accz, ex.bb1))
-    sel = lambda new, old: w(grant, new.reshape(sh), old)
-    st = st._replace(
+
+
+def start_paths(st: WB.WaveState, granted: torch.Tensor, pix, s0, send,
+                cam: Camera, width: int, height: int, seed) -> WB.WaveState:
+    """Start the granted lanes' paths: a lane's (pix, s0) seeds its stream
+    (`seed_perf`, `seed` an int or the seed word) and its camera ray, its
+    path and accumulator are reset, and the kernel's in-chunk
+    regeneration runs on to `send`.  pix, s0 and send hold exact ints
+    (any dtype), one for every lane."""
+    sh = st.pix.shape
+    f32 = torch.float32
+    pix_u = pix.reshape(-1).long()
+    rng0 = seed_perf(pix_u, s0.reshape(-1).long(), seed)
+    rng1, o, d, tmv = camera_rays(cam, width, height, pix_u, rng0)
+    w = torch.where
+    sel = lambda new, old: w(granted, new.reshape(sh), old)
+    return st._replace(
         ox=sel(o.x, st.ox), oy=sel(o.y, st.oy), oz=sel(o.z, st.oz),
         dx=sel(d.x, st.dx), dy=sel(d.y, st.dy), dz=sel(d.z, st.dz),
         tm=sel(tmv, st.tm), rng=sel(rng1, st.rng),
-        tpx=w(grant, 1.0, st.tpx), tpy=w(grant, 1.0, st.tpy),
-        tpz=w(grant, 1.0, st.tpz), radx=w(grant, 0.0, st.radx),
-        rady=w(grant, 0.0, st.rady), radz=w(grant, 0.0, st.radz),
-        alive=w(grant, 1.0, st.alive), bnc=w(grant, 0.0, st.bnc),
-        pix=w(grant, pix_new, st.pix), s=w(grant, s0, st.s),
-        send=w(grant, s0 + float(c.chunk), st.send),
-        accx=w(grant, 0.0, st.accx), accy=w(grant, 0.0, st.accy),
-        accz=w(grant, 0.0, st.accz))
-    return st, ex, counter + torch.minimum(elig_i.sum(), navail)
+        tpx=w(granted, 1.0, st.tpx), tpy=w(granted, 1.0, st.tpy),
+        tpz=w(granted, 1.0, st.tpz), radx=w(granted, 0.0, st.radx),
+        rady=w(granted, 0.0, st.rady), radz=w(granted, 0.0, st.radz),
+        alive=w(granted, 1.0, st.alive), bnc=w(granted, 0.0, st.bnc),
+        pix=sel(pix.to(f32), st.pix), s=sel(s0.to(f32), st.s),
+        send=sel(send.to(f32), st.send),
+        accx=w(granted, 0.0, st.accx), accy=w(granted, 0.0, st.accy),
+        accz=w(granted, 0.0, st.accz))
 
 
 def refill_plain(c: WindowCall, st: WB.WaveState, ex: WqwExtra,
                  counter: torch.Tensor, fx: WB.FixState,
                  noop: torch.Tensor):
-    """`_refill` and the no-op count, on any device: the CPU's refill, and
-    the yardstick the card's kernel is held to.  Returns (st, ex,
-    counter, noop), noop one more if the counter did not move."""
-    st, ex, new = _refill(c, st, ex, counter, fx)
+    """Grant dead lanes the next chunk of the pixel-major queue, bank
+    their finished chunk and launch the new chunk's first camera ray (the
+    kernel's in-chunk regeneration continues the same streams), on any
+    device: the CPU's refill, and the yardstick the card's kernel
+    `ops.refill.refill` is held to.  Returns (st, ex, counter, noop),
+    noop one more if the counter did not move."""
+    f32 = torch.float32
+    granted, cid, new = grant(eligible(st, ex, fx), counter, c.n_chunks)
+    pix = c.pix_base + torch.div(cid, c.vcpp, rounding_mode="floor").to(f32)
+    s0 = c.samp_base + ((cid % c.vcpp) * c.chunk).to(f32)
+    ex = bank(st, ex, granted)
+    st = start_paths(st, granted, pix, s0, s0 + float(c.chunk),
+                     WB.table_camera(c.tables.cam), c.width, c.height,
+                     c.tables.seed)
     return st, ex, new, noop + (new == counter)
 
 
@@ -602,10 +636,8 @@ def window_call(scene: T.Scene, cam: Camera, width: int, height: int, *,
     """The scene packed for K1 and one call's values, on `device`.  The
     0-d words are written by fill kernels: nothing waits on the card."""
     word = lambda v, dt: torch.full((), v, dtype=dt, device=device)
-    tables = WB.pack_scene(scene, device)._replace(
-        cam=WB.pack_camera(cam, width, height, device),
-        seed=WB.seed_word(seed, device))
-    atlas_flat, n_atlas = _pack_atlas_flat(scene.textures.atlas.to(device))
+    tables, atlas_flat, n_atlas = k1_inputs(scene, cam, width, height, seed,
+                                            device)
     return WindowCall(
         tables=tables, atlas_flat=atlas_flat,
         n_chunks=word(n_chunks, torch.int64),
@@ -757,41 +789,18 @@ def render_wq_one_bounce(scene: T.Scene, cam: Camera, width: int,
     rows = lanes // LANE
     sh = (rows, LANE)
 
-    tables = WB.pack_scene(scene, dev)._replace(
-        cam=WB.pack_camera(cam, width, height, dev),
-        seed=WB.seed_word(seed, dev))
-    atlas_flat, n_atlas = _pack_atlas_flat(scene.textures.atlas.to(dev))
-    w = torch.where
+    tables, atlas_flat, n_atlas = k1_inputs(scene, cam, width, height, seed,
+                                            dev)
 
     def refill(st: WB.WaveState, counter: torch.Tensor):
-        """Grant dead lanes the next sample ids and launch their camera
-        rays, seeded splitmix(pix ^ splitmix(k ^ seed)), never 0, as the
-        kernel's regeneration seeds them.  send = s: the kernel's in-chunk
-        regeneration never fires; the queue is the only sample source."""
-        dead = (st.alive <= 0.0).reshape(-1)
-        dead_i = dead.long()
-        rank = torch.cumsum(dead_i, 0) - dead_i          # exclusive prefix
-        navail = total - counter
-        grant = (dead & (rank < navail)).reshape(sh)
-        sid = counter + rank
-        pix_new = torch.div(sid, spp, rounding_mode="floor")
-        k_new = sid - pix_new * spp
-        rng0 = splitmix32(pix_new ^ splitmix32(k_new ^ tables.seed))
-        rng0 = w(rng0 == 0, torch.full_like(rng0, INITIAL_STATE), rng0)
-        rng1, o, d, tmv = camera_rays(cam, width, height, pix_new, rng0)
-        sel = lambda new, old: w(grant, new.reshape(sh), old)
-        k_f = k_new.to(torch.float32)
-        st = st._replace(
-            ox=sel(o.x, st.ox), oy=sel(o.y, st.oy), oz=sel(o.z, st.oz),
-            dx=sel(d.x, st.dx), dy=sel(d.y, st.dy), dz=sel(d.z, st.dz),
-            tm=sel(tmv, st.tm), rng=sel(rng1, st.rng),
-            tpx=w(grant, 1.0, st.tpx), tpy=w(grant, 1.0, st.tpy),
-            tpz=w(grant, 1.0, st.tpz), radx=w(grant, 0.0, st.radx),
-            rady=w(grant, 0.0, st.rady), radz=w(grant, 0.0, st.radz),
-            alive=w(grant, 1.0, st.alive), s=sel(k_f, st.s),
-            bnc=w(grant, 0.0, st.bnc),
-            pix=sel(pix_new.to(torch.float32), st.pix), send=sel(k_f, st.send))
-        return st, counter + torch.minimum(dead_i.sum(), navail)
+        """Grant dead lanes the next sample ids and start their paths.
+        send = s: the kernel's in-chunk regeneration never fires; the
+        queue is the only sample source."""
+        granted, sid, counter = grant(st.alive <= 0.0, counter, total)
+        pix = torch.div(sid, spp, rounding_mode="floor")
+        k = sid - pix * spp
+        return start_paths(st, granted, pix, k, k, cam, width, height,
+                           tables.seed), counter
 
     st = _zeros_state(rows, dev)
     fb = torch.zeros(3 * n_pix + 1, dtype=torch.float32, device=dev)

@@ -27,8 +27,7 @@ from typing import NamedTuple, Sequence
 
 import torch
 
-from ..core.rng import (PI, INITIAL_STATE, MASK32, f32, next_f01, next_frange,
-                        splitmix32)
+from ..core.rng import PI, f32, next_f01, next_frange, seed_perf
 from ..core.vec import fcos, fdiv, flog, fsin, fsqrt
 from ..scene import types as T
 
@@ -59,8 +58,8 @@ _INV255 = f32(1.0 / 255.0)
 # ---------------------------------------------------------------------------
 # helpers (bounce_core.py:61-131 of the reference).  Its _xs32, _u32_to_f01,
 # _draw, _draw_range and _splitmix32 are core.rng's xs32_step, u32_to_f01,
-# next_f01, next_frange and splitmix32: masked draws whose masked-off lanes
-# keep their state.
+# next_f01, next_frange and splitmix32 (through seed_perf): masked draws
+# whose masked-off lanes keep their state.
 # ---------------------------------------------------------------------------
 
 def _fast_atan(t):
@@ -520,18 +519,16 @@ def advance(tables, ox, oy, oz, dx, dy, dz, tm, rng, alive,
 # camera ray regeneration (bounce_core.py:662-706 of the reference)
 # ---------------------------------------------------------------------------
 
-def camera_ray_block(cam: Sequence[float], pix, s_idx, seed0: int, mask,
+def camera_ray_block(cam: Sequence[float], pix, s_idx, seed0, mask,
                      cur_rng):
-    """Seed the (pixel, sample) stream and make its camera ray for masked
-    lanes (camera.hpp:93-100, jitter as render.hpp:96-97).  `cam` is the
+    """Seed the (pixel, sample) stream (`core.rng.seed_perf`; `seed0` an
+    int or the 0-d seed word) and make its camera ray for masked lanes
+    (camera.hpp:93-100, jitter as render.hpp:96-97).  `cam` is the
     packed 23-float camera as Python floats, `pix`/`s_idx` float exact
     ints.  The associations are those of `integrator.camera_rays` +
     `Camera.get_ray`, bit for bit: the driver mixes the two per sample.
     Returns (rng, ox, oy, oz, dx, dy, dz, time)."""
-    pix_u = pix.long() & MASK32
-    s_u = torch.clamp_min(s_idx, 0.0).long() & MASK32
-    st0 = splitmix32(pix_u ^ splitmix32(s_u ^ (int(seed0) & MASK32)))
-    st0 = torch.where(st0 == 0, torch.full_like(st0, INITIAL_STATE), st0)
+    st0 = seed_perf(pix.long(), torch.clamp_min(s_idx, 0.0).long(), seed0)
     rng = torch.where(mask, st0, cur_rng)
     W, H = cam[21], cam[22]
     pyf = torch.floor((pix + 0.5) * f32(1.0 / W))

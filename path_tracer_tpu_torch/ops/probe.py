@@ -54,7 +54,7 @@ def probe_state(tables: WB.SceneTables, cam: Camera, width: int,
     pix = rs.randint(0, width * height, n)
     send = rs.randint(1, 4, n)               # 1..3 samples in the chunk
     rng0 = seed_perf(torch.as_tensor(pix), torch.zeros(n, dtype=torch.long),
-                     tables.seed)
+                     torch.as_tensor(tables.seed).cpu())   # made on the host
     rng1, o, d, tm = camera_rays(cam, width, height, torch.as_tensor(pix),
                                  rng0)
     one, zero = t(np.ones(n)), t(np.zeros(n))

@@ -1,6 +1,6 @@
 """The windowed driver's refill as a hand-written CUDA kernel.
 
-`refill` does on the card what `engine/wq.py:_refill`, its plain PyTorch
+`refill` does on the card what `wq.refill_plain`, its plain PyTorch
 version, does: grant each dead lane the next chunk of the queue, bank its
 finished chunk and launch the chunk's first camera ray, to the bit.  The
 kernel (`refill_count` then `refill_grant` in `csrc/wave_bounce.cu`, K1's
@@ -8,7 +8,7 @@ library) is two launches a refill and replaces the ~195 ATen kernels the
 plain version launches on the card.  It replaces no TPU kernel: the JAX
 package's refill is jnp code that XLA fuses.
 
-Unlike `_refill`, it updates the lane state and the banks in place, on the
+Unlike `refill_plain`, it updates the lane state and banks in place, on the
 granted lanes only: a refill then reads five planes of every lane and
 writes only what it grants.  A plane that shares memory with another the
 kernel touches is cloned first (`_distinct`), so a carry made of shared
@@ -69,8 +69,8 @@ def _distinct(fixed, planes):
 
 def refill(c, st: WB.WaveState, ex, counter: torch.Tensor,
            fx: WB.FixState, noop: torch.Tensor):
-    """`wq._refill(c, st, ex, counter, fx)` on CUDA tensors, in place, and
-    the refills that granted nothing: returns (st, ex, counter, noop)
+    """`wq.refill_plain(c, st, ex, counter, fx, noop)` on CUDA tensors, in
+    place; returns (st, ex, counter, noop)
     with noop one more than given if this refill granted no chunk.  `c`
     is the call (`wq.WindowCall`), `ex` the banks (`wq.WqwExtra`).  Two
     launches on the current stream, counted in `refill.launches`, or

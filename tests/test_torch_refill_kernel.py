@@ -1,22 +1,22 @@
 """The windowed driver's refill kernel (`ops.refill.refill`) against its
-plain version `engine.wq._refill`, with the port alone (no JAX, so the
+plain version `engine.wq.refill_plain`, with the port alone (no JAX, so the
 card's tests run here too).
 
 On the CPU: the module imports with no nvcc and no CUDA; CPU carries take
-`_refill` and the kernel's launch counter does not move; the kernel
+`refill_plain` and the kernel's launch counter does not move; the kernel
 refuses CPU tensors; `wq_window_fb.refill_noop` equals a recount of the
 eager driver's refills whose counter did not move; `_distinct` clones
 exactly the planes that share memory with another.
 
 On the card (marked `cuda`, skipped without a GPU): every refill of real
-windows, checked bit for bit against `_refill` on every plane of the state
+windows, checked bit for bit against `refill_plain` on every plane of the state
 and the banks, the counter and the no-op count.  The windows are the final
 scene's at 800x480, 10 spp in chunks of 2 (both bank slots full; the queue
 ending inside a refill; refills with nothing left to grant), the Cornell
 box with its light an image texture (dead lanes with a pending EMIT
 fixup), and a ragged shard of the final scene (pixel and sample bases,
 two chunks a pixel of three).  Then a whole 800x480x10 `render_wq`
-through CUDA graphs equals the one driven by `_refill`, and one warm
+through CUDA graphs equals the one driven by `refill_plain`, and one warm
 preview pass of the Cornell box is 64 refill launches, 31 of its 32
 refills granting nothing.
 """
@@ -55,16 +55,16 @@ def scenes():
 
 
 def _recount(monkeypatch):
-    """Each `_refill` call of the driver: whether its counter moved."""
+    """Each `refill_plain` call of the driver: whether its counter moved."""
     moved = []
-    real = wq._refill
+    real = wq.refill_plain
 
-    def counted(c, st, ex, counter, fx):
-        out = real(c, st, ex, counter, fx)
+    def counted(c, st, ex, counter, fx, noop):
+        out = real(c, st, ex, counter, fx, noop)
         moved.append(bool(out[2] != counter))
         return out
 
-    monkeypatch.setattr(wq, "_refill", counted)
+    monkeypatch.setattr(wq, "refill_plain", counted)
     return moved
 
 
@@ -181,7 +181,7 @@ def _equal(a, b):
 
 def _checked(monkeypatch, seen):
     """Every refill of the driver on the card: the kernel on the driver's
-    own carry (shared zero planes and all) held bit-equal to `_refill` on
+    own carry (shared zero planes and all) held bit-equal to `refill_plain` on
     the same inputs; `seen` counts the cases its inputs hold."""
     def both(c, st, ex, counter, fx, noop):
         want = wq.refill_plain(c, st, ex, counter, fx, noop)  # writes none
@@ -257,8 +257,8 @@ def _render(card, seed):
 def test_render_through_graphs_equals_the_twin_driven_render(card,
                                                              monkeypatch):
     """800x480x10 through CUDA graphs: image, segments, bounces and
-    lane-steps equal with the kernel and with `refill_plain` (`_refill`)
-    in its place."""
+    lane-steps equal with the kernel and with `refill_plain` in its
+    place."""
     runs = {}
     for name in ("kernel", "twin"):
         if name == "twin":
