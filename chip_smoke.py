@@ -43,9 +43,13 @@ Phases, each of which raises on failure (exit code != 0):
    grouped by lane count, renders the frame again on the eager driver
    (`eager_driver`) and holds the replayed frame bit-equal to it, with
    the same launches and lanes, renders it once more with the refill's
-   plain version `engine.wq._refill` in the refill kernel's place and
+   plain version `engine.wq.refill_plain` in the refill kernel's place and
    holds that bit-equal too (the replayed frame's refill launches
-   printed), and writes the frame to build/ (git-ignored);
+   printed), checks the texel kernel's launches are two a bounce and
+   renders it once more with the texel service's plain version
+   `engine.wq.texel_plain` in the kernel's place, holding image,
+   statistics and the texel counters bit-equal, and writes the frame to
+   build/ (git-ignored);
 6. the nearest-sphere spike (K2) at the reference tool's three calls,
    64, 1024 and 4096 rows of 128 rays (P = 512): at each, the plain
    version's time, the kernel forced to every K (bit-equal to the plain
@@ -565,6 +569,7 @@ def main(old_kernel=None, old_pmat=None) -> list:
     from path_tracer_tpu_torch.engine.wq import _pack_atlas_flat, render_wq
     from path_tracer_tpu_torch.ops import build, probe
     from path_tracer_tpu_torch.ops import refill as RF
+    from path_tracer_tpu_torch.ops import texel as TX
     from path_tracer_tpu_torch.ops import wave_bounce as WB
     from path_tracer_tpu_torch.scene.presets import build_final_scene
     from path_tracer_tpu_torch.utils.image import save_png
@@ -652,6 +657,10 @@ def main(old_kernel=None, old_pmat=None) -> list:
     WB.wave_bounce.launches = 0
     WB.wave_bounce.events = []
     refills = RF.refill.launches
+    TX.texel.launches = 0
+    texel_counts = lambda: tuple(getattr(wq.wq_window_fb, k) for k in
+                                 ("texel_pending", "texel_stalled"))
+    counts0 = texel_counts()
     t0 = time.perf_counter()
     img, segs, iters, lane_steps = render_wq(
         scene, cam, W, H, SPP, max_depth=DEPTH, return_stats=True,
@@ -660,6 +669,8 @@ def main(old_kernel=None, old_pmat=None) -> list:
     dt = time.perf_counter() - t0
     launches, events = WB.wave_bounce.launches, WB.wave_bounce.events
     refills = RF.refill.launches - refills
+    texels = TX.texel.launches
+    counts = tuple(b - a for a, b in zip(counts0, texel_counts()))
     WB.wave_bounce.events = None
     # a replayed window's launches share one pair of events around it
     kern_ms = sum(s.elapsed_time(e) for s, e in
@@ -676,12 +687,16 @@ def main(old_kernel=None, old_pmat=None) -> list:
         "occupancy": round(segs / lane_steps, 3),
         "wq_iters": iters, "backend": "cuda"}))
     log(f"[5] {SPP} spp in {dt:.3f} s; wave_bounce launches {launches} "
-        f"(wq_iters {iters}); time inside K1's events {kern_ms:.1f} ms "
+        f"(wq_iters {iters}); texel launches {texels} (two a bounce); "
+        f"time inside K1's events {kern_ms:.1f} ms "
         f"total, {kern_ms / max(launches, 1):.4f} ms/launch "
         f"({100 * kern_ms / 1e3 / dt:.1f}% of wall; a replayed window's "
         f"events span the whole window)")
     if launches != iters or launches == 0:
         raise AssertionError(f"launches {launches} != wq_iters {iters}")
+    if texels != 2 * iters:
+        raise AssertionError(f"texel launches {texels} != 2 x wq_iters "
+                             f"{iters}")
     by_width, seen = {}, set()
     for lanes, s, e in events:
         n, ms_ = by_width.get(lanes, (0, 0.0))
@@ -717,7 +732,7 @@ def main(old_kernel=None, old_pmat=None) -> list:
                              "the eager driver's")
     del e_img, e_events
     # the refill kernel against its plain version: the frame with
-    # `_refill` in its place, through graphs of its own
+    # `refill_plain` in its place, through graphs of its own
     real, plans = wq.refill_lanes, wq._plans
     wq.refill_lanes, wq._plans = wq.refill_plain, type(plans)()
     try:
@@ -730,11 +745,33 @@ def main(old_kernel=None, old_pmat=None) -> list:
     same = (torch.equal(img.view(torch.int32), t_img.view(torch.int32))
             and (segs, iters) == (t_segs, t_iters))
     log(f"[5] refill kernel: {refills} launches in the replayed frame "
-        f"(two a refill bounce); the frame with `_refill` in its place: "
-        f"bit-equal {same}")
+        f"(two a refill bounce); the frame with `refill_plain` in its "
+        f"place: bit-equal {same}")
     if not same or refills == 0:
         raise AssertionError("the frame with the refill kernel differs "
-                             "from the one with `_refill`")
+                             "from the one with `refill_plain`")
+    del t_img
+    # the texel kernel against its plain version: the frame with
+    # `texel_plain` in its place, through graphs of its own
+    real, plans = wq.texel_lanes, wq._plans
+    wq.texel_lanes, wq._plans = wq.texel_plain, type(plans)()
+    counts0 = texel_counts()
+    try:
+        t_img, t_segs, t_iters, _ = render_wq(
+            scene, cam, W, H, SPP, max_depth=DEPTH, return_stats=True,
+            device=dev)
+        torch.cuda.synchronize()
+    finally:
+        wq.texel_lanes, wq._plans = real, plans
+    t_counts = tuple(b - a for a, b in zip(counts0, texel_counts()))
+    same = (torch.equal(img.view(torch.int32), t_img.view(torch.int32))
+            and (segs, iters, counts) == (t_segs, t_iters, t_counts))
+    log(f"[5] texel kernel: {texels} launches in the replayed frame; "
+        f"(pending, stalled) {counts}; the frame with `texel_plain` in its "
+        f"place: {t_counts}, bit-equal {same}")
+    if not same or counts[0] == 0:
+        raise AssertionError("the frame with the texel kernel differs "
+                             "from the one with `texel_plain`")
     del t_img
     frame = img.cpu().numpy()
     if frame.shape != (H, W, 3) or not np.isfinite(frame).all():

@@ -191,7 +191,8 @@ def record_forward_q(scene: T.Scene, cam: Camera, width: int, height: int,
                 texel = atlas_flat[idx]
                 srv = torch.ones_like(fx.kind)
             else:
-                texel, srv = WQ.texel_service(fx, k0 + k, atlas_flat, n_atlas)
+                texel, srv, _ = WQ.texel_lanes(fx, k0 + k, atlas_flat,
+                                               n_atlas)
             out = WB.wave_bounce(tables, st, fix=fx, texel=texel, srv=srv,
                                  t_min=t_min, max_depth=max_depth,
                                  attenuate=attenuate, tile_rows=tr)

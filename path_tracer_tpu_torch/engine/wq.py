@@ -14,7 +14,9 @@ behind a long path:
    to `refill_plain`; the CPU runs `refill_plain`;
 2. texel service: pending image-texture fixups get their atlas texel,
    S=4 per 128-lane row plus full service for a rotating set of heavy
-   rows; uncovered lanes stall in the kernel;
+   rows; uncovered lanes stall in the kernel.  On the card the CUDA
+   kernel `ops.texel.texel` does it in two launches, bit-equal to
+   `texel_service`; the CPU runs `texel_service`;
 3. bounce: `ops.wave_bounce.wave_bounce`, the CUDA kernel, advances every
    lane one segment and regenerates within the chunk;
 4. once per window of `window` bounces the banks are deposited into the
@@ -62,6 +64,7 @@ from ..core.rng import f32, seed_perf
 from ..core.vec import fdiv, live_divisors
 from ..scene import types as T
 from ..ops import refill as RF
+from ..ops import texel as TX
 from ..ops import wave_bounce as WB
 from .integrator import camera_rays
 
@@ -146,6 +149,35 @@ def texel_service(fx: WB.FixState, k: int, atlas_flat: torch.Tensor,
     srow = served_row[:, None] & need
     texel = torch.where(srow, ctex[torch.clamp(hrank, 0, cap - 1)], texel)
     return texel, (srv | srow).to(torch.float32)
+
+
+def texel_plain(fx: WB.FixState, k: int, atlas_flat: torch.Tensor,
+                n_atlas: int, counts: Optional[torch.Tensor] = None):
+    """`texel_lanes` on any device by the plain service: `texel_service`,
+    and `counts` plus `count_nonzero`'s (pending, served).  The CPU's
+    path, and what a card render is held against with it in
+    `texel_lanes`'s place."""
+    texel, srv = texel_service(fx, k, atlas_flat, n_atlas)
+    if counts is not None:
+        counts = counts + torch.count_nonzero(torch.stack([fx.kind, srv]),
+                                              dim=(1, 2))
+    return texel, srv, counts
+
+
+def texel_lanes(fx: WB.FixState, k: int, atlas_flat: torch.Tensor,
+                n_atlas: int, counts: Optional[torch.Tensor] = None):
+    """The texel service of bounce `k`, as `texel_service` returns it:
+    on a CUDA carry the kernel (`ops.texel.texel`), on a CPU carry
+    `texel_plain`; no fallback between them.  `counts`, where given, is
+    the window's (pending, served) lane-bounces so far, a 2-word int64: the
+    kernel adds this bounce's in the same launch, in place.  Returns
+    (texel, srv, counts)."""
+    dev = fx.kind.device
+    if dev.type == "cuda":
+        return (*TX.texel(fx, k, atlas_flat, n_atlas, counts), counts)
+    if dev.type != "cpu":
+        raise ValueError(f"texel service: unsupported device {dev}")
+    return texel_plain(fx, k, atlas_flat, n_atlas, counts)
 
 
 def resolve_fixups(st: WB.WaveState, fix: WB.FixState,
@@ -494,16 +526,14 @@ def window_body(c: WindowCall, cy: Carry, refill: bool
     [lane-bounces with a pending fixup, those the texel service
     covered]."""
     st, ex, fx, fb, counter = cy
-    texels = None
-    noop = torch.zeros((), dtype=torch.int64, device=counter.device) \
-        if refill else None
+    i64, dev = torch.int64, counter.device
+    noop = torch.zeros((), dtype=i64, device=dev) if refill else None
+    texels = torch.zeros(2, dtype=i64, device=dev) if _textured(c) else None
     for k in range(c.window):
         if refill:
             st, ex, counter, noop = refill_lanes(c, st, ex, counter, fx, noop)
-        texel, srv = texel_service(fx, k, c.atlas_flat, c.n_atlas)
-        if _textured(c):
-            n = torch.count_nonzero(torch.stack([fx.kind, srv]), dim=(1, 2))
-            texels = n if texels is None else texels + n
+        texel, srv, texels = texel_lanes(fx, k, c.atlas_flat, c.n_atlas,
+                                         texels)
         out = WB.wave_bounce(c.tables, st, fix=fx, texel=texel, srv=srv,
                              t_min=c.t_min, max_depth=c.max_depth,
                              attenuate=c.attenuate, tile_rows=c.tile_rows)
@@ -528,8 +558,9 @@ class WindowGraph:
     on the current device.  The graph reads the plan's call inputs and
     its own static carry, and its last nodes copy the window's final
     carry back into that static carry and the host read into `read`: a
-    replay continues where the last one ended.  Capturing runs nothing;
-    the K1 and refill launches it holds are counted at each replay."""
+    replay continues where the last one ended.  Capturing runs nothing:
+    the kernels' launch counters give back what the capture added, and
+    each replay adds it again (K1's with its events, `count_replay`)."""
 
     def __init__(self, c: WindowCall, static: Carry, refill: bool, pool):
         self.carry = static
@@ -537,23 +568,23 @@ class WindowGraph:
         self.read = torch.zeros(read_size(c, refill), dtype=torch.int64,
                                 device=self.device)
         self.graph = torch.cuda.CUDAGraph()
-        self.lanes: list = []           # of each captured K1 launch
-        self.refills: list = []         # of each captured refill launch
-        WB.wave_bounce.captured = self.lanes
-        RF.refill.captured = self.refills
-        try:
-            with torch.cuda.graph(self.graph, pool=pool):
-                out, read = window_body(c, static, refill)
-                _copy_into(static, out)
-                self.read.copy_(read)
-        finally:
-            WB.wave_bounce.captured = None
-            RF.refill.captured = None
+        kernels = (WB.wave_bounce, RF.refill, TX.texel)
+        before = [f.launches for f in kernels]
+        with torch.cuda.graph(self.graph, pool=pool):
+            out, read = window_body(c, static, refill)
+            _copy_into(static, out)
+            self.read.copy_(read)
+        k1, self.refills, self.texels = (f.launches - n for f, n in
+                                         zip(kernels, before))
+        for f, n in zip(kernels, before):
+            f.launches = n
+        self.lanes = [static.st.pix.numel()] * k1   # of each K1 launch
         self.divisors = live_divisors()   # the graph reads them in place
 
     def replay(self) -> None:
         WB.count_replay(self.lanes, self.graph.replay, self.device)
-        RF.refill.launches += len(self.refills)
+        RF.refill.launches += self.refills
+        TX.texel.launches += self.texels
 
 
 class WindowPlan:

@@ -150,7 +150,9 @@ def _sphere_fold(sph, lo, hi, moving, ox, oy, oz, dx, dy, dz, tm, a,
         k1 = nb - sq
         k2 = nb + sq
         cand = torch.where(k1 > col(tmin_a), k1, k2)
-        ok = (disc > 0.0) & (cand > col(tmin_a))   # tangent misses
+        # tangent misses; so does r^2 = 0 (the table's padding), whose
+        # disc far away is float32 noise of either sign
+        ok = (disc > 0.0) & (s[8] > 0.0) & (cand > col(tmin_a))
         kmin, arg = torch.min(torch.where(ok, cand, INF), dim=-1)
         upd = kmin < bk
         bk = torch.where(upd, kmin, bk)

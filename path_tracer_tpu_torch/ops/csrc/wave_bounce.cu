@@ -68,7 +68,8 @@
 // Outputs go to separate buffers the wrapper allocates; nothing is updated
 // in place.  The same library holds the windowed driver's refill
 // (refill_count, refill_grant: its own section at the end), which shares
-// K1's first-ray code (camera_ray) and updates the lane state in place.
+// K1's first-ray code (camera_ray) and updates the lane state in place,
+// and its texel service (texel_count, texel_serve: the last section).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -146,6 +147,20 @@ struct RefillArgs {
   long long* out;          // (2): the new counter, the new noop count
   int n_lanes;
   int chunk;
+};
+
+// texel-service arguments; mirrored by texel._Args (ctypes).  Planes are
+// (rows, 128); the rotations and the cap are the bounce's, from its k.
+struct TexelArgs {
+  const float* kind;       // fix.kind: a fixup is pending where != 0
+  const float* idx;        // fix.idx: its atlas texel, an int in f32
+  const int* atlas;        // (n_atlas): the atlas packed flat
+  int* texel;              // out: the served lanes' texels, else 0
+  float* srv;              // out: 1 where served, else 0
+  int* heavy;              // (rows): the row's heavy flag, launch 1 -> 2
+  int* counts;             // (blocks): heavy rows a block, launch 1 -> 2
+  unsigned long long* acc; // (2): += pending, served lanes; null: none
+  int rows, n_atlas, slots, bo, rbo, cap;
 };
 
 namespace {
@@ -1268,7 +1283,7 @@ cudaError_t run_any(const WaveArgs& a, cudaStream_t stream, int* per_sm) {
   }
 }
 
-// ---- the windowed driver's refill (engine/wq.py:_refill) -----------------
+// ---- the windowed driver's refill (engine/wq.py:refill_plain) ------------
 // Replaces no TPU kernel: the JAX package's refill is jnp code that XLA
 // fuses on the TPU, where the port's ATen version launched ~195 kernels a
 // refill on the card.  It grants each eligible lane (dead, no pending EMIT
@@ -1403,6 +1418,142 @@ __global__ void __launch_bounds__(R_BLOCK) refill_grant(const RefillArgs A) {
   }
 }
 
+// ---- the windowed driver's texel service (engine/wq.py:texel_service) ----
+// Replaces no TPU kernel: the JAX package's service is jnp code that XLA
+// fuses on the TPU, where the port's ATen version launched ~74 kernels a
+// bounce on the card.  Its rule, lane by lane, to the bit: a fixup is
+// pending where kind != 0; a lane's rank is its exclusive rank among its
+// row's pending lanes in lane order rotated to start at bo; a row with
+// more than `slots` pending lanes is heavy, and its rank is its exclusive
+// rank among the heavy rows in row order rotated to start at rbo; a
+// pending lane is served if its rank is under `slots`, or its row is heavy
+// and ranks under `cap`; a served lane gets atlas[clamp(trunc(idx))].
+// What bounds it: bytes, ~20 a lane (kind twice, idx, texel, srv; the
+// atlas reads of the served lanes hit L2): 7.7 MB at an 800x480 frame's
+// 385,024 lanes, 2.3 us at 3.35 TB/s.  A warp takes a row, four lanes a
+// thread, so a row's ranks are ballots and popcounts in registers.  Rows
+// are ranked across blocks by two launches, no order between blocks:
+//   1. texel_count: each warp counts its row's pending lanes and writes the
+//      row's heavy flag; each block writes how many of its rows are heavy;
+//   2. texel_serve: each block sums the heavy rows before it, before rbo
+//      and in all (the unrotated prefixes P[r], P[rbo] and H, which give a
+//      rotated rank as P[r] - P[rbo] from rbo on, H - P[rbo] + P[r] before
+//      it; a lane's rank is the same formula over its row's ballots), then
+//      writes every lane's texel and srv and adds its rows' pending and
+//      served lanes to the window's two counts with integer atomics, exact
+//      in any order.
+constexpr int T_BLOCK = 256;                 // threads a block
+constexpr int T_ROWS = T_BLOCK / 32;         // rows a block (texel.ROWS)
+constexpr int T_LANES = 128;                 // lanes a row
+constexpr int T_PER = T_LANES / 32;          // lanes a thread
+
+// Lanes [0, x) of a row set in its ballots m (lane q * 32 + l is bit l of
+// m[q]), for x in [0, T_LANES).
+__device__ __forceinline__ int texel_prefix(const unsigned (&m)[T_PER],
+                                            int x) {
+  int n = 0;
+#pragma unroll
+  for (int q = 0; q < T_PER; ++q) {
+    if (q < (x >> 5)) n += __popc(m[q]);
+    else if (q == (x >> 5)) n += __popc(m[q] & ((1u << (x & 31)) - 1u));
+  }
+  return n;
+}
+
+// The pending lanes of row r (warp-uniform), as ballots; 0 past the rows.
+__device__ __forceinline__ int texel_need(const TexelArgs& A, int r,
+                                          unsigned (&m)[T_PER]) {
+  const int lane = threadIdx.x & 31;
+  int n = 0;
+#pragma unroll
+  for (int q = 0; q < T_PER; ++q) {
+    m[q] = __ballot_sync(
+        FULL, r < A.rows && A.kind[(size_t)r * T_LANES + q * 32 + lane] != 0.f);
+    n += __popc(m[q]);
+  }
+  return n;
+}
+
+__global__ void __launch_bounds__(T_BLOCK) texel_count(const TexelArgs A) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int r = blockIdx.x * T_ROWS + warp;
+  unsigned m[T_PER];
+  const bool heavy = texel_need(A, r, m) > A.slots;
+  if (r < A.rows && lane == 0) A.heavy[r] = heavy;
+  const int h = __syncthreads_count(lane == 0 && heavy);
+  if (threadIdx.x == 0) A.counts[blockIdx.x] = h;
+}
+
+__global__ void __launch_bounds__(T_BLOCK) texel_serve(const TexelArgs A) {
+  __shared__ int part[3][T_ROWS];     // heavy rows: before this block,
+                                      // before rbo's block, in all
+  __shared__ int row_heavy[T_ROWS];
+  __shared__ int tally[2][T_ROWS];    // pending, served lanes a row
+  const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
+  const int rbo_block = A.rbo / T_ROWS;
+  int s[3] = {0, 0, 0};
+  for (int b = t; b < (int)gridDim.x; b += T_BLOCK) {
+    const int c = A.counts[b];
+    if (b < (int)blockIdx.x) s[0] += c;
+    if (b < rbo_block) s[1] += c;
+    s[2] += c;
+  }
+#pragma unroll
+  for (int j = 0; j < 3; ++j) {
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) s[j] += __shfl_xor_sync(FULL, s[j], o);
+    if (lane == 0) part[j][warp] = s[j];
+  }
+  const int r = blockIdx.x * T_ROWS + warp;
+  unsigned m[T_PER];
+  const int n = texel_need(A, r, m);
+  const bool heavy = n > A.slots;
+  if (lane == 0) row_heavy[warp] = heavy;
+  __syncthreads();
+  int p_r = 0, p_rbo = 0, h = 0;
+#pragma unroll
+  for (int w = 0; w < T_ROWS; ++w) {
+    p_r += part[0][w] + (w < warp ? row_heavy[w] : 0);
+    p_rbo += part[1][w];
+    h += part[2][w];
+  }
+  for (int q = rbo_block * T_ROWS; q < A.rbo; ++q) p_rbo += A.heavy[q];
+  const int hrank = r >= A.rbo ? p_r - p_rbo : h - p_rbo + p_r;
+  const bool full = heavy && hrank < A.cap;
+  const int pc_bo = texel_prefix(m, A.bo);
+  int served_n = 0;
+#pragma unroll
+  for (int q = 0; q < T_PER; ++q) {
+    const int l = q * 32 + lane;
+    const int pc = texel_prefix(m, l);
+    const int rank = l >= A.bo ? pc - pc_bo : n - pc_bo + pc;
+    const bool served = ((m[q] >> lane) & 1u) && (rank < A.slots || full);
+    served_n += __popc(__ballot_sync(FULL, served));
+    if (r < A.rows) {
+      const size_t i = (size_t)r * T_LANES + l;
+      int tx = 0;
+      if (served) {
+        long long a = (long long)A.idx[i];
+        a = a < 0 ? 0 : (a > A.n_atlas - 1 ? A.n_atlas - 1 : a);
+        tx = A.atlas[a];
+      }
+      A.texel[i] = tx;
+      A.srv[i] = served ? 1.f : 0.f;
+    }
+  }
+  if (lane == 0) {
+    tally[0][warp] = n;
+    tally[1][warp] = served_n;
+  }
+  __syncthreads();
+  if (t < 2 && A.acc != nullptr) {
+    unsigned long long sum = 0;
+#pragma unroll
+    for (int w = 0; w < T_ROWS; ++w) sum += tally[t][w];
+    if (sum) atomicAdd(A.acc + t, sum);
+  }
+}
+
 }  // namespace
 
 // Launch one bounce on `stream`; returns cudaGetLastError() after the
@@ -1433,5 +1584,19 @@ extern "C" int refill_launch(const RefillArgs* a, void* stream) {
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   refill_grant<<<blocks, R_BLOCK, 0, s>>>(*a);
+  return (int)cudaGetLastError();
+}
+
+// The windowed driver's texel service on `stream`: texel_count, then
+// texel_serve, over ceil(rows / T_ROWS) blocks.  Returns
+// cudaGetLastError() after each launch.
+extern "C" int texel_launch(const TexelArgs* a, void* stream) {
+  if (a->rows <= 0) return 0;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int blocks = (a->rows + T_ROWS - 1) / T_ROWS;
+  texel_count<<<blocks, T_BLOCK, 0, s>>>(*a);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  texel_serve<<<blocks, T_BLOCK, 0, s>>>(*a);
   return (int)cudaGetLastError();
 }

@@ -8,7 +8,9 @@ does not cover (they stall).  `tie_scene` is a scene made for equal
 sphere keys across media segments, `media_scene` one with more media
 than the kernel has templated instantiations for (past 23, more than its
 shared-memory variants take), and `sphere_scene` one whose fold table is
-too large to stage in shared memory.  `agreement` compares two bounce
+too large to stage in shared memory.  `padding_rays` aims a state's rays
+at the sphere table's padding; `texel_edge` makes the texel service's
+edge states.  `agreement` compares two bounce
 outputs plane by plane.  The tests use them against the reference
 package on the CPU; `chip_smoke.py` and the card tests use them for the
 kernel against its plain version on the card.
@@ -195,6 +197,78 @@ def sphere_scene(aspect: float, n_static: int = 13000, seed: int = 0,
         x, z = rs.uniform(-11.0, 11.0), rs.uniform(-11.0, 11.0)
         sb.add_sphere((float(x), 0.04, float(z)), 0.04, mats[k % len(mats)])
     return sb.build(device=resolve_device(device)), cam
+
+
+# a ray the final scene's padding once caught: at (1e9, 0, 0) with r^2 = 0,
+# the float32 disc cancelled to a positive value, a "hit" at t 6.96e8
+PADDING_RAY = ((4.7179, 1.0935, 1.5601), (1.4360, 0.0003, -0.0003))
+
+
+def padding_rays(n: int, seed: int = 0) -> Tuple[torch.Tensor, ...]:
+    """(ox, oy, oz, dx, dy, dz) of `n` rays on the CPU, from origins in
+    [-10, 10]^3 toward (1e9, 0, 0), where `WB.pack_scene` puts the sphere
+    table's padding: unit directions, every second one scaled by 0.5-3,
+    and ray 0 `PADDING_RAY`."""
+    rs = np.random.RandomState(seed)
+    o = rs.uniform(-10.0, 10.0, (n, 3))
+    d = np.array([1.0e9, 0.0, 0.0]) - o
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    d[1::2] *= rs.uniform(0.5, 3.0, (len(d[1::2]), 1))
+    o[0], d[0] = PADDING_RAY
+    return tuple(torch.from_numpy(np.ascontiguousarray(v[:, i], np.float32))
+                 for v in (o, d) for i in range(3))
+
+
+TEXEL_ATLAS = 4096        # texels in the atlas the edge states index
+TEXEL_EDGES = ("one_row", "heavy_over_cap", "full_row", "rbo_last_row",
+               "none_pending", "odd_idx", "frame_width")
+
+
+def _texel_state(rows, dens, rs):
+    """kind (1 or 2 with probability dens[r] in row r) and idx planes."""
+    kind = np.where(rs.rand(rows, WB.LANE) < np.asarray(dens)[:, None],
+                    rs.randint(1, 3, (rows, WB.LANE)), 0).astype(np.float32)
+    idx = np.floor(rs.uniform(0.0, float(TEXEL_ATLAS), (rows, WB.LANE)))
+    return kind, idx.astype(np.float32)
+
+
+def _k_with_rbo(rows, rbo):
+    return next(k for k in range(10 ** 5) if (k * 997) % rows == rbo)
+
+
+def texel_edge(case: str):
+    """(kind, idx, ks) numpy planes of one of `TEXEL_EDGES`, the fix
+    states at the edges of the texel service's rule, and the bounces k
+    to serve them at."""
+    rs = np.random.RandomState(sorted(TEXEL_EDGES).index(case))
+    if case == "one_row":            # cap 1: the one heavy row is served
+        kind, idx = _texel_state(1, [0.3], rs)
+        return kind, idx, [0, 1, 7]
+    if case == "heavy_over_cap":     # 32 rows, cap 4, ~12 heavy
+        kind, idx = _texel_state(32, np.where(rs.rand(32) < 0.4, 0.2, 0.02),
+                                 rs)
+        return kind, idx, [0, 3, 11]
+    if case == "full_row":           # a row with all 128 lanes pending
+        kind, idx = _texel_state(
+            8, [0.0, 0.01, 1.0, 0.05, 0.0, 0.5, 0.01, 0.0], rs)
+        kind[2] = 1.0
+        return kind, idx, [0, 5]
+    if case == "rbo_last_row":       # the heavy-row rotation starts at rows-1
+        kind, idx = _texel_state(24, np.linspace(0.0, 0.2, 24), rs)
+        return kind, idx, [_k_with_rbo(24, 23), _k_with_rbo(24, 22)]
+    if case == "none_pending":
+        kind, idx = _texel_state(16, np.zeros(16), rs)
+        return kind, idx, [0, 4]
+    if case == "odd_idx":            # negative, non-integral, past the atlas
+        kind, idx = _texel_state(16, np.full(16, 0.3), rs)
+        idx = rs.uniform(-70.0, TEXEL_ATLAS + 70.0, kind.shape)
+        return kind, idx.astype(np.float32), [0, 2]
+    if case != "frame_width":
+        raise ValueError(f"texel_edge: no case {case!r}")
+    # a frame's width: 3,008 rows of 128 lanes, ~13% of lanes pending
+    kind, idx = _texel_state(3008, np.clip(rs.exponential(0.13, 3008), 0, 1),
+                             rs)
+    return kind, idx, [0, 13, 31]
 
 
 def planes(out: WB.WaveOut) -> Dict[str, torch.Tensor]:

@@ -73,8 +73,7 @@ def refill(c, st: WB.WaveState, ex, counter: torch.Tensor,
     place; returns (st, ex, counter, noop)
     with noop one more than given if this refill granted no chunk.  `c`
     is the call (`wq.WindowCall`), `ex` the banks (`wq.WqwExtra`).  Two
-    launches on the current stream, counted in `refill.launches`, or
-    logged in `refill.captured` while a CUDA graph captures them."""
+    launches on the current stream, counted in `refill.launches`."""
     dev = st.pix.device
     if dev.type != "cuda":
         raise ValueError(f"refill: the kernel takes CUDA tensors, got {dev}")
@@ -110,19 +109,14 @@ def refill(c, st: WB.WaveState, ex, counter: torch.Tensor,
     out = torch.empty(2, dtype=i64, device=dev)
     a.counts, a.out = counts.data_ptr(), out.data_ptr()
     with torch.cuda.device(dev):
-        captured = torch.cuda.is_current_stream_capturing()
         stream = torch.cuda.current_stream(dev)
         err = _lib().refill_launch(ctypes.byref(a), _P(stream.cuda_stream))
     if err != 0:
         raise RuntimeError(f"refill: CUDA launch failed: "
                            f"{_lib().wave_bounce_error_string(err).decode()}")
-    if not captured:
-        refill.launches += 2
-    elif refill.captured is not None:
-        refill.captured.extend([a.n_lanes] * 2)
+    refill.launches += 2
     return (st._replace(**planes), type(ex)(*banks), out[0], out[1])
 
 
-refill.launches = 0     # kernel launches run (two a refill), replays counted
-refill.captured = None  # a list to collect the lanes of each launch captured
-#                         into a CUDA graph; None = off
+refill.launches = 0     # kernel launches (two a refill); a captured pair
+#                         counts at each replay (`wq.WindowGraph`)

@@ -109,6 +109,12 @@ def _seg_key(scan, med_scans):
     return (scan[:, None] > med_scans[None, :]).sum(1)
 
 
+# r^2 in the fold table of a sphere that is never hit: at the padding's
+# |c - o|^2 ~ 1e18 an r^2 of 0 leaves the float32 disc b^2 - a*cc to
+# cancellation noise of either sign; -1e30 puts it ~1e30*a below 0
+NO_HIT_R2 = -1.0e30
+
+
 def _nonzero_inv(x):
     return torch.where(x == 0.0, 1.0, 1.0 / torch.where(x == 0.0, 1.0, x))
 
@@ -118,7 +124,12 @@ def fold_table(sph: torch.Tensor, sph_segs: torch.Tensor) -> torch.Tensor:
     static sphere is one record (cx, cy, cz, r^2), a moving one three,
     (cx, cy, cz, r^2), (vx, vy, vz, t0), (inv_dt, 0, 0, 0), with c the
     center at t0 and v the motion over the shutter (sph rows 0-2, 8, 3-7).
-    Returns an (n_records, 4) f32 tensor on sph's device."""
+    A sphere with r^2 = 0, the table's padding among them, is never hit
+    (`bounce_core._sphere_fold`); its record holds NO_HIT_R2 for r^2, so
+    the kernel's disc is far below 0 however it rounds.  Returns an
+    (n_records, 4) f32 tensor on sph's device."""
+    sph = torch.cat([sph[:8], torch.where(sph[8:9] > 0.0, sph[8:9],
+                                          NO_HIT_R2), sph[9:]])
     recs, start = [], 0
     for static_end, end in sph_segs.tolist():
         recs.append(sph[[0, 1, 2, 8], start:static_end].T)
@@ -160,7 +171,7 @@ def pack_scene(scene: T.Scene,
     inv_dt = torch.where(t1 - t0 == 0.0, 0.0, _nonzero_inv(t1 - t0))
     dcx, dcy, dcz = (torch.where(act, c1 - c0, 0.0)
                      for c0, c1 in ((c0x, c1x), (c0y, c1y), (c0z, c1z)))
-    # padding: r^2 = 0 and far away, so disc < 0 always
+    # padding: r^2 = 0 and far away; the fold never takes an r^2 = 0 row
     c0x = torch.where(act, c0x, 1.0e9)
     r2 = torch.where(act, rad * rad, 0.0)
     sph = torch.stack([c0x, c0y, c0z, dcx, dcy, dcz, t0.to(f32), inv_dt,
@@ -484,8 +495,8 @@ def _launch(tables: SceneTables, st: WaveState, fix: FixState,
     a.seed = _check(tables.seed, torch.int64, (), dev, "seed")
     a.t_min = float(t_min)
     stream = torch.cuda.current_stream(dev)
-    # a launch captured into a CUDA graph does not run: it is logged in
-    # `wave_bounce.captured` and counted when the graph is replayed
+    # a launch captured into a CUDA graph does not run: no events; the
+    # graph's owner takes its count back and counts its replays
     with torch.cuda.device(dev):
         captured = torch.cuda.is_current_stream_capturing()
     events = None if captured else wave_bounce.events
@@ -496,11 +507,7 @@ def _launch(tables: SceneTables, st: WaveState, fix: FixState,
     if err != 0:
         raise RuntimeError(f"wave_bounce: CUDA launch failed: "
                            f"{lib.wave_bounce_error_string(err).decode()}")
-    if captured:
-        if wave_bounce.captured is not None:
-            wave_bounce.captured.append(a.n_lanes)
-    else:
-        wave_bounce.launches += 1
+    wave_bounce.launches += 1
     if events is not None:
         end.record(stream)
         events.append((a.n_lanes, start, end))
@@ -588,8 +595,7 @@ def count_replay(lanes, replay, device: torch.device) -> None:
         events.extend((n, start, end) for n in lanes)
 
 
-wave_bounce.launches = 0   # kernel launches run (CUDA tensors only)
+wave_bounce.launches = 0   # kernel launches (CUDA tensors only); a captured
+#                            one counts at each replay (`count_replay`)
 wave_bounce.events = None  # a list to collect (lanes, start, end), the CUDA
 #                            events around each launch; None = off
-wave_bounce.captured = None  # a list to collect the lanes of each launch
-#                              captured into a CUDA graph; None = off

@@ -12,7 +12,8 @@ with the K threads as a leading tensor dimension; every float op is the
 kernel's, so the result must equal the sequential fold exactly, for every
 K, on the final scene's probe rays, on a scene full of equal keys with
 spheres on both sides of two media (`probe.tie_scene`), and on rays with
-d = 0.
+d = 0.  Neither fold takes the sphere table's padding (r^2 = 0, far along
++x) on rays aimed at it, where the float32 disc is noise of either sign.
 """
 import numpy as np
 import pytest
@@ -144,12 +145,39 @@ def test_fold_table_holds_the_sphere_rows(cases, name):
     tables = cases[name][0]
     sph, fold = tables.sph, tables.fold
     recs, start = [], 0
+    r2 = torch.where(sph[8] > 0.0, sph[8], WB.NO_HIT_R2)  # r^2 = 0: no hit
     for static_end, end in tables.sph_segs.tolist():
         for j in range(start, end):
-            recs.append(sph[[0, 1, 2, 8], j])
+            recs.append(torch.stack([*sph[[0, 1, 2], j], r2[j]]))
             if j >= static_end:            # moving: motion, t0, 1/dt
                 recs.append(sph[[3, 4, 5, 6], j])
                 recs.append(torch.stack([sph[7, j], *torch.zeros(3)]))
         start = end
     assert fold.dtype == torch.float32 and fold.is_contiguous()
     assert torch.equal(fold, torch.stack(recs))
+
+
+@pytest.mark.parametrize("k", WB.SPLITS)
+def test_no_fold_takes_the_padding(k):
+    """Rays aimed at the padding (`probe.padding_rays`): no lane takes a
+    padding row, in the sequential fold and in each split of the kernel's,
+    and the two agree bit for bit.  Ray 0 once took row 489 at t 6.96e8
+    in both; it misses everything."""
+    scene, _ = build_final_scene(W / H, device="cpu")
+    tables = WB.pack_scene(scene, "cpu")
+    pad = (tables.sph[8] == 0.0).nonzero().flatten()
+    assert len(pad) > 0 and (tables.sph[0, pad] == 1.0e9).all()
+    ox, oy, oz, dx, dy, dz = probe.padding_rays(2048, seed=k)
+    tm = torch.zeros_like(ox)
+    a = dx * dx + dy * dy + dz * dz
+    tmin_a = np.float32(1e-3) * a
+    segs = tables.sph_segs.tolist()
+    bk, bidx, _ = bounce_core.sphere_fold(tables.sph, segs, ox, oy, oz, dx,
+                                          dy, dz, tm, a, tmin_a)
+    sk, sidx, _ = split_fold(tables.fold, segs, k, ox, oy, oz, dx, dy, dz,
+                             tm, a, tmin_a)
+    assert torch.equal(sk.view(torch.int32), bk.view(torch.int32))
+    assert torch.equal(sidx, bidx.long())
+    taken = torch.isfinite(bk) & torch.isin(bidx.long(), pad)
+    assert not taken.any()
+    assert bk[0] == INF and torch.isfinite(bk).any()

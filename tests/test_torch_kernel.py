@@ -17,7 +17,9 @@ shared-memory variants' caps (24 and 30 media, and `probe.sphere_scene`'s
 is bit-equal too.  K1 reads its base seed through a device word: handed
 the word it gives the plain version's bits for that seed, and one launch
 captured in a CUDA graph gives a fresh launch's bits for each seed written
-into the word between replays.  The nearest-sphere spike (K2)
+into the word between replays.  On rays aimed at the sphere table's
+padding (r^2 = 0 rows far along +x) neither takes it, at every split.
+The nearest-sphere spike (K2)
 is bit-equal to its plain version on the card, at the wrapper's K and
 forced to every K of `spike_pmat.SPLITS`, at 64 and 4096 rows,
 on the tie table (`make_tie_inputs`) and on degenerate rays
@@ -148,6 +150,25 @@ def test_scene_past_the_caps_is_bit_equal_on_card(cuda_device, scene):
                        **KW)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", WB.SPLITS)
+def test_no_split_takes_the_padding_on_card(cuda_device, k):
+    """The probe state's rays aimed at the padding (`probe.padding_rays`):
+    the kernel gives the plain version's bits, and no lane hits anything
+    as far away as the padding."""
+    tables, st, fix, texel, srv = _case(cuda_device, rows=16)
+    rays = probe.padding_rays(st.ox.numel(), seed=k)
+    st = st._replace(**{n: r.reshape(st.ox.shape).to(cuda_device)
+                        for n, r in zip(("ox", "oy", "oz", "dx", "dy", "dz"),
+                                        rays)})
+    kern = WB.wave_bounce(tables, st, fix, texel, srv, tile_rows=8,
+                          _split=k, **KW)
+    torch.cuda.synchronize()
+    plain = WB.wave_bounce_plain(tables, st, fix, texel, srv, **KW)
+    _bit_equal(kern, plain)
+    assert (kern.t_hit < 1e7).all() and (kern.t_hit > 0).any()
+
+
 def _bit_equal(a, b):
     agree = probe.agreement(a, b)
     assert all(agree[p] == 1.0 for p in probe.INT_PLANES), agree
@@ -178,31 +199,27 @@ def test_seed_word_is_bit_equal_to_an_int_seed(cuda_device, rows):
 @pytest.mark.cuda
 def test_a_captured_launch_reads_each_seed_from_its_word(cuda_device):
     """One launch captured in a CUDA graph serves every seed: each replay
-    after a new word gives the bits of a fresh launch with that seed, and
-    launches count when replayed, not when captured."""
+    after a new word gives the bits of a fresh launch with that seed; the
+    capture counts its launch once and `count_replay` each replay."""
     tables, st, fix, texel, srv = _case(cuda_device, rows=16)
     word = WB.seed_word(11, cuda_device)
     tw = tables._replace(seed=word)
     WB.wave_bounce(tw, st, fix, texel, srv, tile_rows=8, **KW)
     torch.cuda.synchronize()
-    g, lanes = torch.cuda.CUDAGraph(), []
+    g = torch.cuda.CUDAGraph()
     before = WB.wave_bounce.launches
-    WB.wave_bounce.captured = lanes
-    try:
-        with torch.cuda.graph(g):
-            out = WB.wave_bounce(tw, st, fix, texel, srv, tile_rows=8, **KW)
-    finally:
-        WB.wave_bounce.captured = None
-    assert WB.wave_bounce.launches == before and lanes == [16 * WB.LANE]
+    with torch.cuda.graph(g):
+        out = WB.wave_bounce(tw, st, fix, texel, srv, tile_rows=8, **KW)
+    assert WB.wave_bounce.launches == before + 1
     for seed in (11, 12, 13):
         word.fill_(seed)
-        WB.count_replay(lanes, g.replay, cuda_device)
+        WB.count_replay([16 * WB.LANE], g.replay, cuda_device)
         want = WB.wave_bounce(
             tables._replace(seed=WB.seed_word(seed, cuda_device)), st, fix,
             texel, srv, tile_rows=8, **KW)
         torch.cuda.synchronize()
         _bit_equal(out, want)
-    assert WB.wave_bounce.launches == before + 6
+    assert WB.wave_bounce.launches == before + 7
 
 
 @pytest.mark.cuda

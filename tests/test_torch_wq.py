@@ -22,6 +22,7 @@ from path_tracer_tpu.ops.pallas import wave_bounce as JWB
 from path_tracer_tpu.scene.presets import build_final_scene
 from path_tracer_tpu_torch.convert import camera_from_numpy, scene_from_numpy
 from path_tracer_tpu_torch.engine import wq as TWQ
+from path_tracer_tpu_torch.ops import probe as TPB
 from path_tracer_tpu_torch.ops import wave_bounce as TWB
 from path_tracer_tpu_torch.scene import presets as TP
 from tools import make_jax_goldens as golden
@@ -116,16 +117,35 @@ def test_add_in_order_is_a_sequential_scatter_add():
                                   want[:n_slots].view(np.uint32))
 
 
-@pytest.mark.parametrize("k", [0, 1, 5])
-def test_texel_service_matches_reference(k):
-    """Slots and heavy-row spill on a random pending-fixup state with
-    crowded rows: the same texels and coverage as the reference."""
+def _crowded(k):
+    """Random pending fixups, 0-30% of a row's lanes, on 16 rows."""
     rs = np.random.RandomState(10 + k)
     rows = 16
     kind = np.where(rs.rand(rows, 128) < np.linspace(0, 0.3, rows)[:, None],
                     rs.randint(1, 3, (rows, 128)), 0).astype(np.float32)
     idx = rs.randint(0, 4096, (rows, 128)).astype(np.float32)
-    atlas = rs.randint(0, 256, (4096, 3)).astype(np.uint8)
+    return kind, idx, rs.randint(0, 256, (4096, 3)).astype(np.uint8)
+
+
+def _texel_edge(case):
+    kind, idx, _ = TPB.texel_edge(case)
+    rs = np.random.RandomState(99)
+    return kind, idx, rs.randint(0, 256, (TPB.TEXEL_ATLAS, 3)).astype(
+        np.uint8)
+
+
+@pytest.mark.parametrize("case,k", [
+    *(pytest.param(None, k, id=str(k)) for k in (0, 1, 5)),
+    *(pytest.param(case, k, id=f"{case}-{k}")
+      for case in TPB.TEXEL_EDGES
+      for k in TPB.texel_edge(case)[2])])
+def test_texel_service_matches_reference(case, k):
+    """Slots and heavy-row spill on a random pending-fixup state with
+    crowded rows, and on the service's edge states (`probe.texel_edge`:
+    one row, more heavy rows than the cap, a full row, the row rotation
+    at the last row, nothing pending, negative and non-integral indices,
+    a frame's width): the same texels and coverage as the reference."""
+    kind, idx, atlas = _crowded(k) if case is None else _texel_edge(case)
     jflat, n = JWQ._pack_atlas_flat(jax.numpy.asarray(atlas))
     tflat, _ = TWQ._pack_atlas_flat(torch.from_numpy(atlas))
     z = np.zeros_like(kind)
@@ -137,4 +157,9 @@ def test_texel_service_matches_reference(k):
     m = np.asarray(jsrv) > 0
     np.testing.assert_array_equal(np.asarray(jtex).astype(np.int64)[m],
                                   ttex.numpy().astype(np.int64)[m])
-    assert m.sum() > 0 and (m != (kind != 0)).sum() > 0   # some stall
+    if case is None:
+        assert m.sum() > 0 and (m != (kind != 0)).sum() > 0   # some stall
+    elif case == "none_pending":
+        assert m.sum() == 0
+    else:
+        assert m.sum() > 0
