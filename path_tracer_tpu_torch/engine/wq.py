@@ -510,9 +510,15 @@ def _textured(c: WindowCall) -> bool:
     return c.n_atlas > 1
 
 
+def _spans(c: WindowCall) -> bool:
+    """Whether K1 times its phases in the call's windows: on the card."""
+    return c.tables.cam.device.type == "cuda"
+
+
 def read_size(c: WindowCall, refill: bool) -> int:
     """The numbers of a window's host read (`window_body`)."""
-    return 2 + int(refill) + 2 * int(_textured(c))
+    return (2 + int(refill) + 2 * int(_textured(c))
+            + len(WB.PHASES) * int(_spans(c)))
 
 
 def window_body(c: WindowCall, cy: Carry, refill: bool
@@ -522,13 +528,16 @@ def window_body(c: WindowCall, cy: Carry, refill: bool
     (the CPU) runs it, and the card captures it (`WindowGraph`).
     Returns the carry after it and the window's host read, an int64
     tensor [chunks granted, live lanes], then where it refills [refills
-    that granted nothing], and where the scene has an image texture
+    that granted nothing], where the scene has an image texture
     [lane-bounces with a pending fixup, those the texel service
-    covered]."""
+    covered], and on the card K1's cycles in each of its phases
+    (`WB.PHASES`)."""
     st, ex, fx, fb, counter = cy
     i64, dev = torch.int64, counter.device
     noop = torch.zeros((), dtype=i64, device=dev) if refill else None
     texels = torch.zeros(2, dtype=i64, device=dev) if _textured(c) else None
+    spans = torch.zeros(len(WB.PHASES), dtype=i64, device=dev) \
+        if _spans(c) else None
     for k in range(c.window):
         if refill:
             st, ex, counter, noop = refill_lanes(c, st, ex, counter, fx, noop)
@@ -536,7 +545,8 @@ def window_body(c: WindowCall, cy: Carry, refill: bool
                                          texels)
         out = WB.wave_bounce(c.tables, st, fix=fx, texel=texel, srv=srv,
                              t_min=c.t_min, max_depth=c.max_depth,
-                             attenuate=c.attenuate, tile_rows=c.tile_rows)
+                             attenuate=c.attenuate, tile_rows=c.tile_rows,
+                             spans=spans)
         st, fx = out.state, out.fix
     if ex is not None:
         ex, fb = deposit(ex, fb, c.n_pix_loc, c.cpp, c.pix_base)
@@ -545,6 +555,8 @@ def window_body(c: WindowCall, cy: Carry, refill: bool
         read.append(noop)
     if texels is not None:
         read += texels.unbind()
+    if spans is not None:
+        read += spans.unbind()
     return Carry(st, ex, fx, fb, counter), torch.stack(read)
 
 
@@ -703,7 +715,9 @@ def wq_window_fb(scene: T.Scene, cam: Camera, width: int, height: int, *,
     counts the lane-bounces of every window with a pending fixup and
     `.texel_stalled` those the texel service left uncovered, which stall
     in the kernel; `wq_window_fb.refill_noop` counts the refills that
-    granted no chunk.  All come in the window's one host read."""
+    granted no chunk; on the card `ops.wave_bounce.wave_bounce.
+    phase_cycles` adds K1's cycles by phase.  All come in the window's one
+    host read."""
     C = chunk
     cpp = spp_loc // C
     if cpp * C != spp_loc:
@@ -736,9 +750,13 @@ def wq_window_fb(scene: T.Scene, cam: Camera, width: int, height: int, *,
         rest = read[2 + refill:]
         if refill:
             wq_window_fb.refill_noop += read[2]
-        if rest:
+        if _textured(c):
             wq_window_fb.texel_pending += rest[0]
             wq_window_fb.texel_stalled += rest[0] - rest[1]
+            rest = rest[2:]
+        if rest:
+            cycles = WB.wave_bounce.phase_cycles
+            WB.wave_bounce.phase_cycles = [a + b for a, b in zip(cycles, rest)]
         return cy, read[:2]
 
     # drain stages: narrow the grid 4x per stage as the live set decays

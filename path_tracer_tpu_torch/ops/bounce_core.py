@@ -47,6 +47,7 @@ FIX_ALBEDO = 1.0   # throughput *= atlas[fix_idx]
 FIX_EMIT = 2.0     # acc += fix_w * atlas[fix_idx]
 
 _SPH_BLOCK = 128   # spheres per vectorised fold step
+_RECT_BLOCK = 128  # rects per vectorised fold step
 _TWO_PI = f32(2.0 * PI)
 _PI = f32(PI)
 _HALF_PI = f32(PI / 2)
@@ -160,6 +161,52 @@ def _sphere_fold(sph, lo, hi, moving, ox, oy, oz, dx, dy, dz, tm, a,
     return bk, bidx
 
 
+def _rect_fold(rect, lo, hi, ox, oy, oz, dx, dy, dz, tmin, carry):
+    """The rect fold over rects [lo, hi), `_RECT_BLOCK` at a time: the
+    carry (t, u, v, meta, param, r, g, b, xy?, xz?) of the last rect at
+    the least t that passes, as the sequential fold keeps it (a later
+    equal t replaces): a block's winner is its last row at its least
+    passing t, and it replaces the carry where that t is not above the
+    carry's.  Each row's float ops are the sequential fold's."""
+    col = lambda v: v.unsqueeze(-1)
+    rt, ru, rv, rmeta, rpar, rar, rag, rab, rxy, rxz = carry
+    where = torch.where
+    for c0 in range(lo, hi, _RECT_BLOCK):
+        r = rect[:, c0:min(c0 + _RECT_BLOCK, hi)]
+        isxy, isxz, isyz, kk, a0, a1, b0, b1 = r[:8]
+        o_k = isyz * col(ox) + isxz * col(oy) + isxy * col(oz)
+        d_k = isyz * col(dx) + isxz * col(dy) + isxy * col(dz)
+        t = (kk - o_k) / d_k          # a true divide; 0/0 rejects below
+        ca = isxy + isxz
+        o_a = ca * col(ox) + isyz * col(oy)
+        d_a = ca * col(dx) + isyz * col(dy)
+        cb = isxz + isyz
+        o_b = isxy * col(oy) + cb * col(oz)
+        d_b = isxy * col(dy) + cb * col(dz)
+        av = o_a + t * d_a
+        bv = o_b + t * d_b
+        in_b = ~((av < a0) | (av > a1) | (bv < b0) | (bv > b1))
+        ok = ~(t < tmin) & in_b & (torch.abs(t) < BIG)
+        tv = where(ok, t, INF)
+        m = tv.min(dim=-1).values
+        rows = torch.arange(r.shape[1], device=t.device)
+        j = where(ok & (tv == col(m)), rows, -1).max(dim=-1).values
+        upd = (j >= 0) & ~(m > rt)
+        j = torch.clamp(j, min=0)
+        at = lambda x: torch.gather(x, -1, col(j)).squeeze(-1)
+        rt = where(upd, m, rt)
+        ru = where(upd, (at(av) - a0[j]) * r[8][j], ru)
+        rv = where(upd, (at(bv) - b0[j]) * r[9][j], rv)
+        rmeta = where(upd, r[10][j], rmeta)
+        rpar = where(upd, r[11][j], rpar)
+        rar = where(upd, r[12][j], rar)
+        rag = where(upd, r[13][j], rag)
+        rab = where(upd, r[14][j], rab)
+        rxy = where(upd, isxy[j], rxy)
+        rxz = where(upd, isxz[j], rxz)
+    return rt, ru, rv, rmeta, rpar, rar, rag, rab, rxy, rxz
+
+
 def sphere_fold(sph, sph_segs, ox, oy, oz, dx, dy, dz, tm, a, tmin_a):
     """The sphere fold over every media segment in table order: the best
     (key, index) of each lane, index 0 and key inf without a hit, and the
@@ -218,39 +265,16 @@ def advance(tables, ox, oy, oz, dx, dy, dz, tm, rng, alive,
     inv_dy = 1.0 / dy
     inv_dz = 1.0 / dz
     rt = torch.full_like(a, INF)
-    ru = rv = rmeta = rpar = rar = rag = rab = rxy = rxz = zero
+    rect_carry = (rt,) + (zero,) * 9
     rect_snap = []
     start = 0
     for mseg in range(n_med + 1):
-        for i in range(start, rect_segs[mseg]):
-            r = rect[:, i].tolist()
-            isxy, isxz, isyz, kk, a0, a1, b0, b1 = r[:8]
-            o_k = isyz * ox + isxz * oy + isxy * oz
-            d_k = isyz * dx + isxz * dy + isxy * dz
-            t = (kk - o_k) / d_k          # a true divide; 0/0 rejects below
-            ca = isxy + isxz
-            o_a = ca * ox + isyz * oy
-            d_a = ca * dx + isyz * dy
-            cb = isxz + isyz
-            o_b = isxy * oy + cb * oz
-            d_b = isxy * dy + cb * dz
-            av = o_a + t * d_a
-            bv = o_b + t * d_b
-            in_b = ~((av < a0) | (av > a1) | (bv < b0) | (bv > b1))
-            ok = ~(t < tmin) & ~(t > rt) & in_b & (torch.abs(t) < BIG)
-            rt = where(ok, t, rt)
-            ru = where(ok, (av - a0) * r[8], ru)
-            rv = where(ok, (bv - b0) * r[9], rv)
-            rmeta = where(ok, r[10], rmeta)
-            rpar = where(ok, r[11], rpar)
-            rar = where(ok, r[12], rar)
-            rag = where(ok, r[13], rag)
-            rab = where(ok, r[14], rab)
-            rxy = where(ok, isxy, rxy)
-            rxz = where(ok, isxz, rxz)
+        rect_carry = _rect_fold(rect, start, rect_segs[mseg], ox, oy, oz, dx,
+                                dy, dz, tmin, rect_carry)
         if mseg < n_med:
-            rect_snap.append(rt)
+            rect_snap.append(rect_carry[0])
         start = rect_segs[mseg]
+    rt, ru, rv, rmeta, rpar, rar, rag, rab, rxy, rxz = rect_carry
 
     # ---- triangle fold (Moller-Trumbore, triangle.hpp:58-100) --------------
     tt = torch.full_like(a, INF)

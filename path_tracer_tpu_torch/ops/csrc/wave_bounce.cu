@@ -65,6 +65,13 @@
 //     wrapper allocates per call.  Fold order, merge and every float
 //     association are the other variants', so it too is bit-equal to the
 //     plain version.
+//   * phase spans: where the caller passes a buffer (WaveArgs.spans), each
+//     block adds the clock64() cycles of five phases of its tiles to it,
+//     one 64-bit atomic a phase a block at its end (span_* below): the
+//     sphere fold as the block runs it, and the rect fold, the triangle
+//     fold, merge and media, and the rest as warp 0 runs them.  No clock
+//     is read inside a fold's loop; with a null buffer nothing is read
+//     or written, and K1_SPANS=0 compiles the spans out.
 // Outputs go to separate buffers the wrapper allocates; nothing is updated
 // in place.  The same library holds the windowed driver's refill
 // (refill_count, refill_grant: its own section at the end), which shares
@@ -115,6 +122,8 @@ struct WaveArgs {
   int split;               // K, threads a lane's sphere fold is split across
   int global;              // 1: the NMED_GLOBAL variant (wave_bounce.k1_variant)
   float* scratch;          // NMED_GLOBAL: (3, n_med, n_lanes) snapshot planes
+  unsigned long long* spans;  // (N_PHASES): cycles of each phase, added
+                              // to; null: no spans
 };
 
 namespace {
@@ -228,6 +237,91 @@ struct SnapStore<NMED_GLOBAL> {
 };
 
 __device__ __forceinline__ float ld(const float* p) { return __ldg(p); }
+
+// ---- phase spans ----------------------------------------------------------
+#ifndef K1_SPANS
+#define K1_SPANS 1
+#endif
+// K1's phases, in the order of WaveArgs.spans (wave_bounce.PHASES)
+enum { PH_SPHERE, PH_RECT, PH_TRI, PH_MEDIA, PH_REST, N_PHASES };
+// Warp 0's stamps inside advance(): before the rect fold, after it, after
+// the triangle fold, after merge and media.
+enum { ST_RECT0, ST_RECT1, ST_TRI1, ST_MEDIA1, N_STAMPS };
+// A block's spans: thread 0's last mark and each phase's cycles so far;
+// the stamps every advancing lane of warp 0 writes (one value a warp).
+__shared__ unsigned long long s_span_last;
+__shared__ unsigned long long s_span_sum[N_PHASES];
+__shared__ volatile unsigned long long s_span_stamp[N_STAMPS];
+
+__device__ __forceinline__ bool span_on(const WaveArgs& A) {
+  return K1_SPANS && A.spans != nullptr;
+}
+
+// Warp 0's stamp `k`, taken between the folds of advance().
+__device__ __forceinline__ void span_stamp(const WaveArgs& A, int k) {
+  if (span_on(A) && threadIdx.x < 32) s_span_stamp[k] = clock64();
+}
+
+// Thread 0 starts the block's spans.
+__device__ __forceinline__ void span_start(const WaveArgs& A) {
+  if (span_on(A) && threadIdx.x == 0) {
+    const unsigned long long t = clock64();
+    s_span_last = t;
+#pragma unroll
+    for (int k = 0; k < N_PHASES; ++k) s_span_sum[k] = 0;
+#pragma unroll
+    for (int k = 0; k < N_STAMPS; ++k) s_span_stamp[k] = 0;
+  }
+}
+
+// Thread 0: the block's sphere fold ends here.  Warp 0 waits for the new
+// mark, so that none of its stamps of this tile predates it.
+__device__ __forceinline__ void span_sphere(const WaveArgs& A) {
+  if (span_on(A) && threadIdx.x < 32) {
+    if (threadIdx.x == 0) {
+      const unsigned long long t = clock64();
+      s_span_sum[PH_SPHERE] += t - s_span_last;
+      s_span_last = t;
+    }
+    __syncwarp();
+  }
+}
+
+// Thread 0: the cycles since its last mark go to the rest, less warp 0's
+// folds, merge and media where it ran them since (stamps newer than the
+// mark).
+__device__ __forceinline__ void span_rest(const WaveArgs& A) {
+  if (span_on(A) && threadIdx.x == 0) {
+    const unsigned long long t = clock64();
+    const unsigned long long r0 = s_span_stamp[ST_RECT0];
+    unsigned long long rest = t - s_span_last;
+    if (r0 > s_span_last) {
+      const unsigned long long r1 = s_span_stamp[ST_RECT1];
+      const unsigned long long t1 = s_span_stamp[ST_TRI1];
+      const unsigned long long m1 = s_span_stamp[ST_MEDIA1];
+      s_span_sum[PH_RECT] += r1 - r0;
+      s_span_sum[PH_TRI] += t1 - r1;
+      s_span_sum[PH_MEDIA] += m1 - t1;
+      rest -= m1 - r0;
+    }
+    s_span_sum[PH_REST] += rest;
+    s_span_last = t;
+  }
+}
+
+// At the block's end, once warp 0 has written its last stamps: thread 0
+// adds the last rest, then one atomic a phase.
+__device__ __forceinline__ void span_end(const WaveArgs& A) {
+  if (span_on(A) && threadIdx.x < 32) {
+    __syncwarp();
+    span_rest(A);
+    if (threadIdx.x == 0) {
+#pragma unroll
+      for (int k = 0; k < N_PHASES; ++k)
+        atomicAdd(&A.spans[k], s_span_sum[k]);
+    }
+  }
+}
 
 // torch.minimum / torch.maximum: NaN in, NaN out
 __device__ __forceinline__ float tmin(float a, float b) {
@@ -539,6 +633,7 @@ __device__ __forceinline__ void advance(const WaveArgs& A, const int i,
   const float bmeta = ld(&sph[10 * ps + bidx]);
 
   // ---- rect fold (t space, reject form; rectangle.hpp:16-130) -----------
+  span_stamp(A, ST_RECT0);
   const float inv_dx = 1.f / dx, inv_dy = 1.f / dy, inv_dz = 1.f / dz;
   const int pr = A.p_rect;
   const float* R = A.rect;
@@ -583,6 +678,7 @@ __device__ __forceinline__ void advance(const WaveArgs& A, const int i,
     if (m < nm) rect_snap[m] = rt;
     start = end;
   }
+  span_stamp(A, ST_RECT1);
 
   // ---- triangle fold (Moller-Trumbore, triangle.hpp:58-100) -------------
   const int pt = A.p_tri;
@@ -632,6 +728,7 @@ __device__ __forceinline__ void advance(const WaveArgs& A, const int i,
     if (m < nm) tri_snap[m] = tt;
     start = end;
   }
+  span_stamp(A, ST_TRI1);
 
   // ---- cross-class merge -------------------------------------------------
   const float psx = ox + s_t * dx, psy = oy + s_t * dy, psz = oz + s_t * dz;
@@ -717,6 +814,7 @@ __device__ __forceinline__ void advance(const WaveArgs& A, const int i,
     earlier = accept ? tmin(earlier, t_e) : earlier;
 #undef MD
   }
+  span_stamp(A, ST_MEDIA1);
 
   // ---- hit record (hitable.hpp:8-24) -------------------------------------
   const bool hit = w.t < BIG;
@@ -1106,6 +1204,7 @@ __global__ void __launch_bounds__(BLOCK, K == 1 ? 4 : 3)
   bool staged = false;  // this thread has seen the copy complete
   const int lo = blockIdx.x * span;
   const int hi = min(lo + span, A.n_lanes);
+  span_start(A);
   for (int t0 = lo, parity = 0; t0 < hi; t0 += TILE, parity ^= 1) {
     const int i = t0 + tid;
     const bool mine = tid < TILE && i < hi;
@@ -1151,6 +1250,7 @@ __global__ void __launch_bounds__(BLOCK, K == 1 ? 4 : 3)
         s_ray[8][pos] = A.t_min * a;
       }
       __syncthreads();
+      span_rest(A);
 
       // ---- the sphere fold, K threads a dense entry ---------------------
       if (warp * (32 / K) < n_adv) {  // the warp holds a live entry
@@ -1184,6 +1284,7 @@ __global__ void __launch_bounds__(BLOCK, K == 1 ? 4 : 3)
         }
       }
       __syncthreads();
+      span_sphere(A);
     }
 
     // ---- the rest, one thread a lane ------------------------------------
@@ -1211,6 +1312,7 @@ __global__ void __launch_bounds__(BLOCK, K == 1 ? 4 : 3)
   }
   // the copy must land before the block's shared memory is released
   if (!GLOBAL && issued && !staged) mbar_wait(bar, 0);
+  span_end(A);
 }
 
 // Launch one bounce, or with `per_sm` set only report the resident blocks

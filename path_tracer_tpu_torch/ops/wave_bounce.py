@@ -21,6 +21,13 @@ scene past either cap (more than MAX_MED media, or a fold table over
 MAX_FOLD_BYTES), which reads the table in place and keeps a lane's
 per-medium snapshots in a scratch plane.  All three are bit-equal to the
 plain version; only the global one takes any scene the reference takes.
+
+Given a `spans` buffer, the kernel also adds the clock64() cycles of five
+phases of its tiles to it (`PHASES`: the sphere fold, the rect fold, the
+triangle fold, merge and media, the rest), one 64-bit atomic a phase a
+block; the windowed driver passes one a window and adds what it read to
+`wave_bounce.phase_cycles`.  Without one, and in the plain version,
+nothing is counted.
 """
 from __future__ import annotations
 
@@ -46,6 +53,8 @@ DEF_TILE_ROWS = 64     # lane-count quantum on the card: rows % 64 == 0
 MAX_MED = 23           # media the shared-memory variants take (csrc: MAX_MED)
 SPLITS = (1, 2, 4, 8, 16, 32)   # threads a lane's sphere fold can take
 MAX_FOLD_BYTES = 192 * 1024     # fold tables the shared-memory variants stage
+# K1's phases, in the order of its spans buffer (csrc: PH_*)
+PHASES = ("sphere", "rect", "tri", "media", "rest")
 
 
 def k1_variant(n_med: int, fold_bytes: int) -> str:
@@ -367,7 +376,8 @@ class _Args(ctypes.Structure):
                    ("attenuate", ctypes.c_int), ("seed", _P),
                    ("t_min", ctypes.c_float), ("fold", _P),
                    ("fold_recs", ctypes.c_int), ("split", ctypes.c_int),
-                   ("global_", ctypes.c_int), ("scratch", _P)])
+                   ("global_", ctypes.c_int), ("scratch", _P),
+                   ("spans", _P)])
 
 
 FILL_THREADS = 1 << 16  # fold threads that keep the card busy
@@ -429,7 +439,8 @@ def occupancy(n_med: int, split: int, fold_recs: int) -> int:
 
 def _launch(tables: SceneTables, st: WaveState, fix: FixState,
             texel: torch.Tensor, srv: torch.Tensor, t_min: float,
-            max_depth: int, attenuate: bool, split: Optional[int] = None):
+            max_depth: int, attenuate: bool, split: Optional[int] = None,
+            spans: Optional[torch.Tensor] = None):
     lib = _lib()
     dev = st.ox.device
     sh = tuple(st.ox.shape)
@@ -494,6 +505,8 @@ def _launch(tables: SceneTables, st: WaveState, fix: FixState,
     a.n_med, a.max_depth, a.attenuate = n_med, int(max_depth), int(attenuate)
     a.seed = _check(tables.seed, torch.int64, (), dev, "seed")
     a.t_min = float(t_min)
+    if spans is not None:
+        a.spans = _check(spans, torch.int64, (len(PHASES),), dev, "spans")
     stream = torch.cuda.current_stream(dev)
     # a launch captured into a CUDA graph does not run: no events; the
     # graph's owner takes its count back and counts its replays
@@ -540,6 +553,7 @@ def wave_bounce(tables: SceneTables, st: WaveState,
                 srv: Optional[torch.Tensor] = None, *, t_min: float,
                 max_depth: int, attenuate: bool,
                 tile_rows: int = DEF_TILE_ROWS,
+                spans: Optional[torch.Tensor] = None,
                 _split: Optional[int] = None) -> WaveOut:
     """One bounce for every lane.  The lane count is rows*128 with rows a
     multiple of tile_rows.  `fix` is the previous call's pending fixups
@@ -548,7 +562,9 @@ def wave_bounce(tables: SceneTables, st: WaveState,
     the 0/1 mask of fixups it covered; lanes with an uncovered pending
     fixup stall this call.  Launches the CUDA kernel for CUDA tensors
     (counted in `wave_bounce.launches`) and runs the plain version for CPU
-    tensors.  `_split` forces K (see `split_for`) for the kernel's
+    tensors.  `spans`, a (len(PHASES),) int64 tensor on the device, has
+    the kernel add each phase's cycles to it; the plain version counts
+    nothing.  `_split` forces K (see `split_for`) for the kernel's
     tests."""
     rows = st.ox.shape[0]
     if rows % tile_rows:
@@ -562,7 +578,8 @@ def wave_bounce(tables: SceneTables, st: WaveState,
         srv = torch.ones((rows, LANE), dtype=torch.float32, device=dev)
     if dev.type == "cuda":
         return _wave_out(st, _launch(tables, st, fix, texel, srv, t_min,
-                                     max_depth, attenuate, split=_split))
+                                     max_depth, attenuate, split=_split,
+                                     spans=spans))
     if dev.type == "cpu":
         return wave_bounce_plain(tables, st, fix, texel, srv, t_min=t_min,
                                  max_depth=max_depth, attenuate=attenuate)
@@ -599,3 +616,6 @@ wave_bounce.launches = 0   # kernel launches (CUDA tensors only); a captured
 #                            one counts at each replay (`count_replay`)
 wave_bounce.events = None  # a list to collect (lanes, start, end), the CUDA
 #                            events around each launch; None = off
+wave_bounce.phase_cycles = [0] * len(PHASES)  # K1's cycles by phase, summed
+#                            over every launch the windowed driver gave a
+#                            spans buffer (the card's), replays included

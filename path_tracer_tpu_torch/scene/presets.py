@@ -1,9 +1,12 @@
-"""The five staged scene presets and the reference's full final scene.
+"""The five staged scene presets, the reference's full final scene, and
+the final scene of "Ray Tracing: The Next Week".
 
-Mirrors the reference package's `scene/presets.py`: the same builder calls
-in the same order, the same host-side xorshift (`HostRng`) in float32, and
-the same image fallback (`PT_REFERENCE_IMAGES`, else a procedural logo), so
-every array equals the reference package's build.
+The first six mirror the reference package's `scene/presets.py`: the same
+builder calls in the same order, the same host-side xorshift (`HostRng`)
+in float32, and the same image fallback (`PT_REFERENCE_IMAGES`, else a
+procedural logo), so every array equals the reference package's build.
+`next_week_final` is the port's own; its calls pack to the same tables
+through either package's `SceneBuilder`.
 
 `build_final_scene` reproduces the reference's main.cpp:61-186.  GCC
 evaluates `point(a + 0.9f*rng(), 0.2f, b + 0.9f*rng())` (main.cpp:82) right
@@ -271,5 +274,67 @@ def _build_final(device: Device = "cuda") -> Tuple[Scene, Camera]:
 
 FINAL_SCENE = Preset("final_scene", 800, 600, 500, 50, _build_final)
 
+
+def next_week_final_builder(sb=None) -> Tuple[SceneBuilder, Camera]:
+    """The final scene of "Ray Tracing: The Next Week" (chapter "A Scene
+    Testing All New Features", `final_scene(800, 10000, 40)`), its calls
+    made on `sb` (default: a new `SceneBuilder`) in the book's object
+    order, which decides scan indices, ties and each medium's clamp; and
+    its camera.  Departures from the book, each with the same work or
+    none: the 1,000 small spheres' `rotate_y(15)` and `translate` are
+    baked into their centres (a rotated sphere is the same sphere, and
+    their solid texture reads no (u, v)); no BVH (linear folds find the
+    same nearest hit); the noise texture is its mean, a solid grey 0.5;
+    the procedural logo stands in for `earthmap.jpg`; a miss takes the
+    program's sky, where the book's background is black (a miss ends the
+    path either way); and the box heights and sphere centres come from
+    `HostRng` at its default state, with the book's distributions."""
+    sb = SceneBuilder() if sb is None else sb
+    rng = HostRng()
+    # 20x20 ground boxes, 100 wide, heights ~ U(1, 101)
+    ground = sb.lambertian((0.48, 0.83, 0.53))
+    for i in range(20):
+        for j in range(20):
+            x0, z0 = -1000.0 + 100.0 * i, -1000.0 + 100.0 * j
+            y1 = float(rng.float_t(1.0, 101.0))
+            sb.add_box((x0, 0.0, z0), (x0 + 100.0, y1, z0 + 100.0), ground)
+    sb.add_xz_rect(123, 423, 147, 412, 554, sb.light((7.0, 7.0, 7.0)))
+    sb.add_moving_sphere((400, 400, 200), (430, 400, 200), 0.0, 1.0, 50,
+                         sb.lambertian((0.7, 0.3, 0.1)))
+    sb.add_sphere((260, 150, 45), 50, sb.dielectric(1.5, (1.0, 1.0, 1.0)))
+    sb.add_sphere((0, 150, 145), 50, sb.metal((0.8, 0.8, 0.9), 1.0))
+    # a glass ball filled with blue smoke, then a thin fog around everything
+    # (the fog's boundary is no hittable)
+    sb.add_sphere((360, 150, 145), 70, sb.dielectric(1.5, (1.0, 1.0, 1.0)))
+    sb.add_constant_medium(("sphere", (360, 150, 145), 70), 0.2,
+                           (0.2, 0.4, 0.9))
+    sb.add_constant_medium(("sphere", (0, 0, 0), 5000), 0.0001,
+                           (1.0, 1.0, 1.0))
+    earth = sb.image_texture(_image_source("earthmap.jpg"))
+    sb.add_sphere((400, 200, 400), 100, sb.lambertian(earth))
+    sb.add_sphere((220, 280, 300), 80, sb.lambertian((0.5, 0.5, 0.5)))
+    # 1,000 spheres in a 165 cube, rotated 15 degrees about y (x' = x cos
+    # + z sin, z' = z cos - x sin) and moved by (-100, 270, 395)
+    white = sb.lambertian((0.73, 0.73, 0.73))
+    cos15, sin15 = np.cos(np.radians(15.0)), np.sin(np.radians(15.0))
+    for _ in range(1000):
+        x, y, z = map(float, rng.vec_t(0.0, 165.0))
+        c = (cos15 * x + sin15 * z - 100.0, y + 270.0,
+             cos15 * z - sin15 * x + 395.0)
+        sb.add_sphere(tuple(float(np.float32(v)) for v in c), 10, white)
+    cam = _camera((478, 278, -600), (278, 278, 0), 40.0, 1.0, 0.0,
+                  t0=0.0, t1=1.0)
+    return sb, cam
+
+
+def _build_next_week_final(device: Device = "cuda") -> Tuple[Scene, Camera]:
+    sb, cam = next_week_final_builder()
+    return sb.build(device=device), cam
+
+
+NEXT_WEEK_FINAL = Preset("next_week_final", 800, 800, 10000, 40,
+                         _build_next_week_final)
+
 PRESETS = {p.name: p for p in [THREE_SPHERES, RTIOW_COVER, CORNELL_BOX,
-                               TEXTURED_MOTION, FINAL_SCENE]}
+                               TEXTURED_MOTION, FINAL_SCENE,
+                               NEXT_WEEK_FINAL]}

@@ -56,7 +56,11 @@ def test_cli_info_matches_the_reference_presets(capsys, monkeypatch):
     info = json.loads(capsys.readouterr().out)
     assert info["backend"] == "cpu" and info["devices"] == ["cpu"]
     assert info["native_runtime"] is False
-    assert info["presets"] == {
+    # the reference's presets, and the port's own next_week_final
+    # (tests/test_torch_next_week.py)
+    ours = info["presets"]
+    assert ours.pop("next_week_final")
+    assert ours == {
         name: {"width": p.width, "height": p.height, "spp": p.spp,
                "depth": p.max_depth} for name, p in JPRESETS.items()}
 

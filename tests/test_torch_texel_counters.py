@@ -248,7 +248,10 @@ def test_replayed_window_counts_what_its_eager_body_counts(card,
     g.replay()
     want, read = wq.window_body(plan.call, wq._clone(cy), True)
     torch.cuda.synchronize()
-    assert g.read.tolist() == read.tolist() and read.shape == (5,)
+    # the counts bit for bit; K1's phase spans are cycles, not bits
+    k = len(WB.PHASES)
+    assert g.read.tolist()[:-k] == read.tolist()[:-k]
+    assert read.shape == (5 + k,)
     assert read[3] > 0
     # render_wq through graphs against the eager windowed driver
     render = lambda: wq.render_wq(scene, cam, w, h, 2, seed=4,

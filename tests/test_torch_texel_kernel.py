@@ -264,7 +264,10 @@ def test_replayed_window_gives_its_eager_bodys_bits_and_launches(card):
     assert TX.texel.launches - before == 2 * wq.DEF_WINDOW
     want, read = wq.window_body(plan.call, wq._clone(cy), True)
     torch.cuda.synchronize()
-    assert g.read.tolist() == read.tolist() and read[3] >= read[4] > 0
+    # the counts bit for bit; K1's phase spans are cycles, not bits
+    k = len(WB.PHASES)
+    assert g.read.tolist()[:-k] == read.tolist()[:-k]
+    assert read[3] >= read[4] > 0
     assert all(_equal(a, b) for a, b in zip(wq._leaves(g.carry),
                                             wq._leaves(want)))
 

@@ -331,7 +331,9 @@ def _replay_matches_eager(plan, g, c, cy0, refill):
     want, read = wq.window_body(c, wq._clone(cy0), refill)
     torch.cuda.synchronize()
     assert _bytes(g.carry) == _bytes(want)
-    assert g.read.tolist() == read.tolist()
+    # the counts bit for bit; K1's phase spans are cycles, not bits
+    k = len(WB.PHASES)
+    assert g.read.tolist()[:-k] == read.tolist()[:-k]
     return want
 
 
